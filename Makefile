@@ -1,7 +1,7 @@
 # Developer entry points, mirroring the reference's top-level Makefile
 # (/root/reference/Makefile) with this repo's tooling.
 SHELL = /bin/bash
-PATHS = gymnasium_planar_robotics_tpu/ tests/ bench.py
+PATHS = gymnasium_planar_robotics_tpu/ tests/ bench.py chip_smoke.py
 
 pytest:
 	python -m pytest tests/ -q

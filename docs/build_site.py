@@ -37,7 +37,6 @@ PAGES = [
     ('Project records', ROOT / 'BASELINE.md', 'baseline.html'),
     ('Project records', ROOT / 'CALIBRATION.md', 'calibration.html'),
     ('Project records', ROOT / 'TRANSFER.md', 'transfer.html'),
-    ('Project records', ROOT / 'TPU_VALIDATION.md', 'tpu_validation.html'),
     ('Project records', ROOT / 'CHANGELOG.md', 'changelog.html'),
 ]
 

@@ -4,7 +4,7 @@ Usage:
     python examples/train_ppo.py [--batch 1024] [--iters 500] [--movers 1]
 
 Everything (env rollout, GAE, updates) runs as one jitted program per
-iteration; on TPU the env batch can additionally be sharded over a mesh
+iteration; on several devices the env batch can additionally be sharded over a mesh
 (see ``parallel/sharding.py`` and ``__graft_entry__.dryrun_multichip``).
 """
 

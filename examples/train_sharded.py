@@ -1,13 +1,14 @@
-"""PPO training over a device mesh with the FUSED env step.
+"""PPO training over a device mesh.
 
-The flagship multi-chip pattern: the env batch is sharded over a 1D
-``data`` mesh; each device runs the whole-shard fused Pallas autoreset
-kernel via ``shard_map`` (``parallel/sharding.make_sharded_fused_step``), so
-rollouts run at per-chip-fused-rate x chips, and PPO gradients all-reduce
-over ICI (the only collectives besides metric means).
+The multi-device pattern: the env batch is sharded over a 1D ``data`` mesh;
+each device steps its shard with the batched autoreset step that
+``ops.pallas_step.batched_autoreset_step`` chooses (the fused kernel under
+``shard_map`` on GPUs, the vmapped XLA step elsewhere), and PPO gradients
+all-reduce over the mesh (the only collectives besides metric means).
 
-On a single-chip machine this still exercises the full sharded program via a
-1-device mesh; on CPU it runs the same code over virtual devices:
+On a single-device machine this still exercises the full sharded program via
+a 1-device mesh; on the CPU it runs the same code over virtual devices, with
+the kernel in interpret mode:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/train_sharded.py --devices 8 --interpret --batch 1024
@@ -25,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from gymnasium_planar_robotics_tpu.models import planning, ppo
+from gymnasium_planar_robotics_tpu.ops import pallas_step
 from gymnasium_planar_robotics_tpu.parallel import sharding
 
 
@@ -36,17 +38,13 @@ def main():
     ap.add_argument('--rollout', type=int, default=32)
     ap.add_argument('--cycles', type=int, default=40)
     ap.add_argument('--interpret', action='store_true',
-                    help='interpret-mode kernels (CPU virtual-device runs)')
-    ap.add_argument('--reactive', action='store_true',
-                    help='round-5 reactive plane-form rollout: env state stays in '
-                         'kernel plane layout for the whole rollout; the policy MLP '
-                         'runs between launches on plane-assembled features')
+                    help='run the fused kernel in interpret mode (CPU virtual-device runs)')
     args = ap.parse_args()
 
     devices = jax.devices()[: args.devices] if args.devices else jax.devices()
     mesh = sharding.make_mesh(devices)
     n_dev = mesh.size
-    assert args.batch % (128 * n_dev) == 0, 'per-device shard must be a multiple of 128'
+    assert args.batch % n_dev == 0, 'the batch must split evenly over the devices'
 
     config, params = planning.make_planning_env(
         np.ones((3, 3)), 1, std_noise=1e-5, dtype=jnp.float32, a_max=3.0,
@@ -61,41 +59,23 @@ def main():
     rep = sharding.replicated(mesh)
     state, obs, _ = planning.init_batch(config, params, jax.random.PRNGKey(1), args.batch)
 
-    if args.reactive:
-        # round-5 path: the rollout keeps env state in kernel plane layout;
-        # the plane kernels are sparse-in-plane, so build them from a sparse
-        # config and let the reactive rollout compute the dense shaping
-        kconfig, kparams = planning.make_planning_env(
-            np.ones((3, 3)), 1, std_noise=1e-5, dtype=jnp.float32, a_max=3.0,
-            num_cycles=args.cycles,
-        )
-        train_step, opt = ppo.make_train_step_reactive(
-            cfg, lambda ps: sharding.make_sharded_reactive_rollout(
-                planning, kconfig, kparams, ps, cfg.rollout_steps, mesh,
-                interpret=args.interpret, dense_reward=True))
-        runner = (
-            jax.device_put(state, sh),
-            jax.device_put(pol, rep),
-            jax.device_put(opt.init(pol), rep),
-            jax.device_put(jax.random.PRNGKey(2), rep),
-            jnp.asarray(0, jnp.int32),
-        )
+    if args.interpret:
+        env_step = sharding.make_sharded_fused_step(planning, config, params, mesh, interpret=True)
+        fused = True
     else:
-        # the fused kernel, one launch per device per env step, under shard_map
-        fused = sharding.make_sharded_fused_step(
-            planning, config, params, mesh, interpret=args.interpret
-        )
-        train_step, opt = ppo.make_train_step(config, params, cfg, batched_step_fn=fused)
-        obs_vec = jnp.concatenate(
-            [obs['observation'], obs['achieved_goal'], obs['desired_goal']], -1
-        ).astype(jnp.float32)
-        runner = (
-            jax.device_put(state, sh),
-            jax.device_put(obs_vec, sh),
-            jax.device_put(pol, rep),
-            jax.device_put(opt.init(pol), rep),
-            jax.device_put(jax.random.PRNGKey(2), rep),
-        )
+        env_step = pallas_step.batched_autoreset_step(planning, config, params, mesh)
+        fused = env_step.uses_kernel
+    train_step, opt = ppo.make_train_step(config, params, cfg, batched_step_fn=env_step)
+    obs_vec = jnp.concatenate(
+        [obs['observation'], obs['achieved_goal'], obs['desired_goal']], -1
+    ).astype(jnp.float32)
+    runner = (
+        jax.device_put(state, sh),
+        jax.device_put(obs_vec, sh),
+        jax.device_put(pol, rep),
+        jax.device_put(opt.init(pol), rep),
+        jax.device_put(jax.random.PRNGKey(2), rep),
+    )
     step = jax.jit(train_step)
 
     runner, metrics = step(runner)  # compile
@@ -110,7 +90,7 @@ def main():
                 f'iter {i:4d}  reward {float(metrics["reward_mean"]):8.3f}  '
                 f'loss {float(metrics["loss"]):8.3f}  '
                 f'{sps:,.0f} env-steps/s over {n_dev} device(s), '
-                + ('reactive plane-form rollout' if args.reactive else 'fused shard_map rollout')
+                + ('fused shard_map rollout' if fused else 'XLA sharded rollout')
             )
 
 

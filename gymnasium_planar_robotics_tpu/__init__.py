@@ -1,9 +1,10 @@
-"""gymnasium_planar_robotics_tpu — a TPU-native planar-robotics environment engine.
+"""gymnasium_planar_robotics_tpu — a batched planar-robotics environment engine.
 
 A from-scratch JAX/XLA re-design of the capabilities of
 ``gymnasium-planar-robotics`` (magnetic-levitation planar motor RL
 environments): batched, jit-compiled physics and collision kernels stepping
-thousands of environments in lockstep on TPU, mesh-sharded across hosts, with
+thousands of environments in lockstep on an accelerator (NVIDIA GPUs),
+mesh-sharded across devices and hosts, with
 Gymnasium / PettingZoo adapters at the edge.
 
 Architecture (vs. the reference's MuJoCo + Python class stack):
@@ -17,15 +18,20 @@ Architecture (vs. the reference's MuJoCo + Python class stack):
 
 __version__ = '0.5.0'
 
-from gymnasium_planar_robotics_tpu.envs.registration import register_gymnasium_envs
+import importlib.util
 
-register_gymnasium_envs()
+# registration needs gymnasium, which is an optional extra (``envs``): the
+# physics core, learners and parallel modules import without it
+if importlib.util.find_spec('gymnasium') is not None:
+    from gymnasium_planar_robotics_tpu.envs.registration import register_gymnasium_envs
+
+    register_gymnasium_envs()
 
 
 def __getattr__(name):
     """Lazy public API (mirrors the reference's re-exports,
     ``/root/reference/gymnasium_planar_robotics/__init__.py:5-18``, mapped to
-    the TPU-native equivalents) without paying adapter import costs up front."""
+    this engine's equivalents) without paying adapter import costs up front."""
     surface = {
         'PlanningGymEnv': ('gymnasium_planar_robotics_tpu.envs.gym_env', 'PlanningGymEnv'),
         'PushingGymEnv': ('gymnasium_planar_robotics_tpu.envs.gym_env', 'PushingGymEnv'),

@@ -1,6 +1,6 @@
 """Environment registration.
 
-TPU-native counterpart of the reference's registry
+This engine's counterpart of the reference's registry
 (``/root/reference/gymnasium_planar_robotics/__init__.py:21-41``): registers the
 same env ids with the same 50-step time limit, but the entry points construct
 thin Gymnasium adapters over the batched JAX core.

@@ -5,7 +5,7 @@ the sparse goal-conditioned rewards (``/root/reference/docs/train_agents.rst``;
 the envs' batched ``compute_reward(achieved, desired, info)`` signature with
 collision flags riding in ``info`` exists precisely so relabeling never
 re-runs collision checks — basic_envs.py:1993-1995).  This module is the
-TPU-native equivalent: one jitted program per iteration that
+on-device equivalent: one jitted program per iteration that
 
 1. rolls the batched env ``T`` steps with exploration noise,
 2. relabels goals with the 'future' strategy INSIDE the rollout window —
@@ -17,6 +17,8 @@ TPU-native equivalent: one jitted program per iteration that
    relabeled transitions.
 
 Everything is ``[T, B]``-shaped array math — no replay-buffer host loop.
+The actor and critic matmuls run at XLA's default float32 precision (TF32 on
+NVIDIA GPUs), as in ``models/ppo``.
 """
 
 from __future__ import annotations
@@ -275,9 +277,8 @@ def make_train_step(
 
     Pass EITHER ``step_autoreset_fn`` (a per-env step, vmapped here) or
     ``batched_step_fn(state, action)`` — an already-batched step such as the
-    fused Pallas kernel or its shard_mapped form
-    (``parallel/sharding.make_sharded_fused_step``), which lets the HER
-    rollout run at the fused rate (same contract as ``ppo.make_train_step``)."""
+    one ``ops/pallas_step.batched_autoreset_step`` chooses (same contract as
+    ``ppo.make_train_step``)."""
     actor_opt = optax.adam(cfg.actor_lr)
     critic_opt = optax.adam(cfg.critic_lr)
     if batched_step_fn is not None:

@@ -1,14 +1,18 @@
 """Data-parallel PPO learner fed by the batched env engine.
 
 The reference trains via SB3's Python loop over a single env
-(``/root/reference/docs/train_agents.rst``); the TPU-native equivalent keeps
-the entire (rollout -> GAE -> PPO update) pipeline in one jitted program:
-envs stepped as a sharded ``[B, ...]`` batch, trajectories stacked on device,
-the actor-critic MLP running batched matmuls on the MXU, and gradients
-reduced across the ``data`` mesh axis by XLA-inserted ICI all-reduces (the
-parameters are replicated, the batch is sharded — classic DP; TP/PP are
-deliberately not built: observation widths are tens of floats, SURVEY.md §2.3
-D3).
+(the reference's ``docs/train_agents.rst``); here the entire (rollout -> GAE
+-> PPO update) pipeline is one jitted program: envs stepped as a sharded
+``[B, ...]`` batch, trajectories stacked on device, the actor-critic MLP
+running batched matmuls, and gradients reduced across the ``data`` mesh axis
+by XLA-inserted all-reduces (the parameters are replicated, the batch is
+sharded — classic DP; TP/PP are deliberately not built: observation widths
+are tens of floats, SURVEY.md §2.3 D3).
+
+Matmul precision: the MLP's float32 matmuls run at XLA's default precision,
+which on NVIDIA GPUs is TF32 (about three decimal digits of mantissa) — a
+deliberate choice for the learner, whose updates are noisy anyway; the
+physics never depends on it.
 """
 
 from __future__ import annotations
@@ -59,39 +63,14 @@ def init_params(key: jax.Array, cfg: PPOConfig, dtype=jnp.float32) -> dict:
 
 
 def apply(params: dict, obs: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """(mu, log_std, value) — batched over leading dims; matmuls land on the MXU."""
+    """(mu, log_std, value) — batched over leading dims (default matmul
+    precision: TF32 on NVIDIA GPUs, see the module docstring)."""
     x = obs
     for layer in params['trunk']:
         x = jnp.tanh(jnp.dot(x, layer['w'], preferred_element_type=jnp.float32) + layer['b'])
     mu = jnp.dot(x, params['mu']['w'], preferred_element_type=jnp.float32) + params['mu']['b']
     value = (jnp.dot(x, params['value']['w'], preferred_element_type=jnp.float32) + params['value']['b'])[..., 0]
     return mu, params['log_std'], value
-
-
-def apply_pm(params: dict, x: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Plane-major ``apply``: features as ``[F, B]`` (the layout the Pallas
-    plane kernels produce for free), outputs ``(mu [A, B], log_std, value
-    [B])``.  Mathematically the transpose of :func:`apply` — the MXU does
-    not care which operand carries the batch, but the reactive plane-form
-    rollout saves a per-step relayout on both the feature and action sides
-    by staying plane-major end to end."""
-    for layer in params['trunk']:
-        x = jnp.tanh(jnp.dot(layer['w'].T, x, preferred_element_type=jnp.float32) + layer['b'][:, None])
-    mu = jnp.dot(params['mu']['w'].T, x, preferred_element_type=jnp.float32) + params['mu']['b'][:, None]
-    value = (jnp.dot(params['value']['w'].T, x, preferred_element_type=jnp.float32) + params['value']['b'][:, None])[0]
-    return mu, params['log_std'], value
-
-
-def sample_action_pm(params: dict, obs_pm: jnp.ndarray, key: jax.Array, scale: float):
-    """Plane-major :func:`sample_action`: ``obs_pm [F, B] -> (action [A, B],
-    raw [A, B], logp [B], value [B])``."""
-    mu, log_std, value = apply_pm(params, obs_pm)
-    noise = jax.random.normal(key, mu.shape, mu.dtype)
-    raw = mu + jnp.exp(log_std)[:, None] * noise
-    logp = (-0.5 * ((raw - mu) / jnp.exp(log_std)[:, None]) ** 2
-            - log_std[:, None] - 0.5 * jnp.log(2 * jnp.pi)).sum(0)
-    action = jnp.clip(raw, -scale, scale)
-    return action, raw, logp, value
 
 
 def sample_action(params: dict, obs: jnp.ndarray, key: jax.Array, scale: float):
@@ -162,90 +141,6 @@ def ppo_loss(params: dict, cfg: PPOConfig, batch) -> jnp.ndarray:
     return pg + cfg.value_coef * v_loss - cfg.entropy_coef * entropy
 
 
-def make_train_step_reactive(cfg: PPOConfig, make_rollout):
-    """PPO train step over a plane-form REACTIVE rollout (round 5): the env
-    state stays in kernel plane layout for the whole rollout
-    (``models/*.make_reactive_rollout``) and the policy MLP runs between
-    kernel launches on features assembled straight from observation planes —
-    training rollouts at the plane-form rate instead of the per-step fused
-    path's pack/unpack glue.
-
-    ``make_rollout(policy_step)`` must return the reactive rollout built with
-    ``num_steps=cfg.rollout_steps``, e.g.::
-
-        train_step, opt = ppo.make_train_step_reactive(
-            cfg, lambda ps: pushing.make_reactive_rollout(
-                config, params, ps, cfg.rollout_steps, dense_reward=True))
-
-    Returns ``(train_step, optimizer)``; the runner is ``(env_state, params,
-    opt_state, key, seed)`` — ``seed`` feeds the kernels' hardware PRNG and
-    advances by ``rollout_steps`` per iteration.
-    """
-    optimizer = optax.adam(cfg.learning_rate)
-
-    def policy_step(pol, k_or_eps, obs_pm):
-        # PLANE-MAJOR contract: obs features arrive [F, B] straight from the
-        # kernel's observation planes; actions leave [A, B] straight into
-        # action planes — zero per-step relayout (apply_pm docstring).
-        # The train step pre-draws the exploration noise for the whole
-        # rollout and passes per-step [A, B] slices via ``policy_xs`` (one
-        # vectorized draw instead of T in-scan threefry calls); a PRNG key
-        # (uint dtype) still works for standalone use.
-        if jnp.issubdtype(k_or_eps.dtype, jnp.floating):
-            mu, log_std, value = apply_pm(pol, obs_pm)
-            raw = mu + jnp.exp(log_std)[:, None] * k_or_eps
-            logp = (-0.5 * ((raw - mu) / jnp.exp(log_std)[:, None]) ** 2
-                    - log_std[:, None] - 0.5 * jnp.log(2 * jnp.pi)).sum(0)
-            action = jnp.clip(raw, -cfg.action_scale, cfg.action_scale)
-        else:
-            action, raw, logp, value = sample_action_pm(pol, obs_pm, k_or_eps, cfg.action_scale)
-        return action, (raw, logp, value)
-
-    reactive_rollout = make_rollout(policy_step)
-
-    def train_step(runner):
-        env_state, params, opt_state, key, seed = runner
-        key, k_roll = jax.random.split(key)
-        batch = jax.tree_util.tree_leaves(env_state)[0].shape[0]
-        eps = jax.random.normal(
-            k_roll, (cfg.rollout_steps, cfg.action_dim, batch), jnp.float32
-        )
-        env_state, traj_t, last_obs_vec = reactive_rollout(
-            env_state, params, k_roll, seed, policy_xs=eps
-        )
-        obs_vec, (raw, logp, value), reward, term, trunc, final_vec = traj_t
-        _, _, last_value = apply(params, last_obs_vec)
-        _, _, final_value = apply(params, final_vec)
-        traj = Transition(
-            obs=obs_vec, raw_action=raw, logp=logp, value=value,
-            reward=reward.astype(jnp.float32), terminated=term, truncated=trunc,
-            final_value=final_value,
-        )
-        advantages, returns = compute_gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
-        flat = jax.tree_util.tree_map(lambda x: x.reshape((-1,) + x.shape[2:]), (
-            traj.obs, traj.raw_action, traj.logp, advantages, returns))
-
-        def epoch(carry, _):
-            params, opt_state = carry
-            loss, grads = jax.value_and_grad(ppo_loss)(params, cfg, flat)
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            return (params, opt_state), loss
-
-        (params, opt_state), losses = jax.lax.scan(
-            epoch, (params, opt_state), None, length=cfg.update_epochs
-        )
-        metrics = {
-            'loss': losses[-1],
-            'reward_mean': traj.reward.mean(),
-            'done_rate': (traj.terminated | traj.truncated).astype(jnp.float32).mean(),
-        }
-        return (env_state, params, opt_state, key, seed + cfg.rollout_steps), metrics
-
-    train_step.policy_step = policy_step
-    return train_step, optimizer
-
-
 def make_train_step(
     env_config,
     env_params,
@@ -261,9 +156,8 @@ def make_train_step(
 
     Pass EITHER ``step_autoreset_fn`` (a per-env step, vmapped here) or
     ``batched_step_fn(state, action)`` — an already-batched step such as the
-    fused Pallas kernel or its shard_mapped form
-    (``parallel/sharding.make_sharded_fused_step``), which lets PPO train at
-    the fused rollout rate on any mesh size."""
+    one ``ops/pallas_step.batched_autoreset_step`` chooses (the fused kernel
+    on a GPU, or its shard_mapped form on a mesh)."""
     optimizer = optax.adam(cfg.learning_rate)
     if batched_step_fn is not None:
         def batched_env_step(_config, _params, state, action):

@@ -1,4 +1,4 @@
-"""BenchmarkPushingEnv, TPU-native: single mover pushes a box to a goal.
+"""BenchmarkPushingEnv: single mover pushes a box to a goal.
 
 Re-design of ``/root/reference/gymnasium_planar_robotics/envs/manipulation/
 benchmark_pushing_env.py``: fixed 3x3 tile table, one mover, one passive box
@@ -53,7 +53,7 @@ class PushingConfig:
     # 'sparse' = reference semantics (0 at goal / -1 per step / -50 wall,
     # benchmark_pushing_env.py:499-527); 'dense' is a TRAINING AID for
     # on-policy learners (potential-style shaping toward the push stand-off
-    # point; XLA step path only — the fused kernels stay sparse) — evaluate
+    # point) — evaluate
     # on 'sparse', the scoring the reference env applies
     reward_mode: str = 'sparse'
 
@@ -592,391 +592,106 @@ def compute_reward(params: PushingParams, achieved_goal, desired_goal, wall_coll
     return jnp.where(reached & ~wall_collision, 0.0, reward)
 
 
-def make_fused_step(
-    config: PushingConfig, params: PushingParams, interpret: bool = False, inject_noise: bool = False
-):
-    """Batched pushing step with the whole cycle loop (incl. contact) in one
-    Pallas launch; signature matches ``batched_step``."""
-    from functools import partial as _partial
+def _kernel_state(state: PushingState) -> dict:
+    """Batched pushing state -> the kernel's ``[B]`` vectors."""
+    vec = dict(steps=state.steps.astype(jnp.float32))
+    for (x, y), arr in zip(
+        (('px', 'py'), ('vx', 'vy'), ('ax', 'ay'), ('kx', 'ky'), ('ox', 'oy'), ('wvx', 'wvy'), ('gx', 'gy')),
+        (state.pos, state.vel, state.acc, state.act, state.obj_pos, state.obj_vel, state.goal),
+    ):
+        vec[x], vec[y] = arr[:, 0], arr[:, 1]
+    vec.update(oyaw=state.obj_yaw, ow=state.obj_w, mz=state.mover_z, mvz=state.mover_vz)
+    return vec
 
-    from gymnasium_planar_robotics_tpu.ops import pallas_step
 
-    assert config.reward_mode == 'sparse', 'fused pushing paths compute the sparse reward in-plane'
+def _state_from_kernel(vec: dict, keys, dtype) -> PushingState:
+    def pair(x, y):
+        return jnp.stack([vec[x], vec[y]], axis=-1).astype(dtype)
 
-    fused = pallas_step.make_fused_pushing_cycles(
-        config, params, interpret=interpret, inject_noise=inject_noise
+    return PushingState(
+        pos=pair('px', 'py'), vel=pair('vx', 'vy'), acc=pair('ax', 'ay'), act=pair('kx', 'ky'),
+        obj_pos=pair('ox', 'oy'), obj_vel=pair('wvx', 'wvy'),
+        obj_yaw=vec['oyaw'].astype(dtype), obj_w=vec['ow'].astype(dtype),
+        mover_z=vec['mz'].astype(dtype), mover_vz=vec['mvz'].astype(dtype),
+        goal=pair('gx', 'gy'), key=keys, steps=vec['steps'].astype(jnp.int32),
     )
-    limit = params.j_max if config.learn_jerk else params.a_max
-
-    def step_fn(state: PushingState, action: jnp.ndarray, noise=None):
-        b = state.pos.shape[0]
-        dtype = state.pos.dtype
-        action = jnp.clip(jnp.asarray(action, dtype).reshape(b, 2), -limit, limit)
-
-        keys = jax.vmap(lambda k: jax.random.split(k, 3))(state.key)
-        new_keys = keys[:, 0]
-        seed = jax.random.randint(jax.random.fold_in(state.key[0], 11), (), 0, 2**31 - 1)
-
-        pos, vel, acc, act, obj_pos, obj_vel, obj_yaw, obj_w, mz, mvz, wall = fused(
-            state.pos, state.vel, state.acc, state.act, state.obj_pos, state.obj_vel,
-            state.obj_yaw, state.obj_w, state.mover_z, state.mover_vz, action, seed, noise=noise,
-        )
-        new_state = PushingState(
-            pos=pos.astype(dtype), vel=vel.astype(dtype), acc=acc.astype(dtype), act=act.astype(dtype),
-            obj_pos=obj_pos.astype(dtype), obj_vel=obj_vel.astype(dtype),
-            obj_yaw=obj_yaw.astype(dtype), obj_w=obj_w.astype(dtype),
-            mover_z=mz.astype(dtype), mover_vz=mvz.astype(dtype),
-            goal=state.goal, key=new_keys, steps=state.steps + 1,
-        )
-        obs = jax.vmap(_partial(_get_obs, config, params))(new_state, keys[:, 1])
-        info = jax.vmap(_partial(_get_info, params))(obs, wall)
-        reward = compute_reward(params, obs['achieved_goal'], obs['desired_goal'], wall)
-        terminated = reward == REWARD_WALL_COLLISION
-        truncated = jnp.zeros((b,), jnp.bool_)
-        return new_state, obs, reward, terminated, truncated, info
-
-    step_fn.noise_planes = fused.noise_planes
-    return step_fn
 
 
 def make_fused_step_autoreset(
-    config: PushingConfig, params: PushingParams, interpret: bool = False,
-    inject_noise: bool = False, cand_k: int = 32,
+    config: PushingConfig, params: PushingParams, interpret: bool = False, cand_k: int = 32,
 ):
-    """Fused Pallas pushing step + episode restart.
-
-    Both actuation modes run EVERYTHING (cycles, termination, reset sampling,
-    both observations) inside one kernel launch — the kernel emits the
-    pre-reset qacc so the jerk-mode final observation is exact.  Stalled
-    reset sampling leaves the env un-reset and reports
-    ``info['reset_stalled']`` (retry next step)."""
+    """Batched pushing autoreset step as ONE fused-kernel launch
+    (``ops/pallas_step``): cycles with contact, termination, reward (sparse
+    or dense), restart and both observations run in the kernel, which emits
+    the pre-reset qacc so the jerk-mode final observation is exact.  Same
+    contract as ``batched_step_autoreset``; noise streams and stalled
+    restarts as in ``planning.make_fused_step_autoreset``."""
     from gymnasium_planar_robotics_tpu.ops import pallas_step
 
-    assert config.reward_mode == 'sparse', 'fused pushing paths compute the sparse reward in-plane'
-
-    fused = pallas_step.make_fused_pushing_autoreset_cycles(
-        config, params, interpret=interpret, inject_noise=inject_noise, cand_k=cand_k
-    )
+    run = pallas_step.pushing_kernel(config, params, 1, cand_k=cand_k, interpret=interpret)
     limit = params.j_max if config.learn_jerk else params.a_max
 
-    def step_fn(state: PushingState, action: jnp.ndarray, noise=None):
+    def step_fn(state: PushingState, action: jnp.ndarray):
         b = state.pos.shape[0]
         dtype = state.pos.dtype
         action = jnp.clip(jnp.asarray(action, dtype).reshape(b, 2), -limit, limit)
-        new_keys = jax.vmap(lambda k: jax.random.split(k, 1)[0])(state.key)
-        seed = jax.random.randint(jax.random.fold_in(state.key[0], 13), (), 0, 2**31 - 1)
-
-        (pos, vel, acc, act, obj_pos, obj_vel, obj_yaw, obj_w, mz, mvz, goal, steps), obs_sel, obs_final, wall, stalled, trials = fused(
-            state.pos, state.vel, state.acc, state.act, state.obj_pos, state.obj_vel,
-            state.obj_yaw, state.obj_w, state.mover_z, state.mover_vz, state.goal, state.steps,
-            action, seed, noise=noise,
+        keys = jax.vmap(jax.random.split)(state.key)
+        streams = jax.vmap(partial(jax.random.bits, dtype=jnp.uint32))(keys[:, 1])
+        vec, (reward, term, trunc), last = run(
+            streams, 0, _kernel_state(state), (action[None, :, 0], action[None, :, 1])
         )
-        acc = acc.astype(dtype)
-        new_state = PushingState(
-            pos=pos.astype(dtype), vel=vel.astype(dtype), acc=acc, act=act.astype(dtype),
-            obj_pos=obj_pos.astype(dtype), obj_vel=obj_vel.astype(dtype),
-            obj_yaw=obj_yaw.astype(dtype), obj_w=obj_w.astype(dtype),
-            mover_z=mz.astype(dtype), mover_vz=mvz.astype(dtype), goal=goal.astype(dtype),
-            key=new_keys, steps=steps,
-        )
-        old_goal = state.goal.astype(dtype)
-        f_mp, f_mv, f_ag, f_acc = (x.astype(dtype) for x in obs_final)
-        s_mp, s_mv, s_ag = (x.astype(dtype) for x in obs_sel)
+        new_state = _state_from_kernel(vec, keys[:, 0], dtype)
 
-        dist = jnp.linalg.norm(f_ag - old_goal, axis=-1)
-        reached = dist <= params.threshold_pos
-        reward = jnp.where(wall, REWARD_WALL_COLLISION, jnp.where(reached, 0.0, -1.0)).astype(dtype)
-        terminated = wall
-        truncated = (state.steps + 1) >= config.max_episode_steps
+        def pair(x, y):
+            return jnp.stack([last[x], last[y]], axis=-1).astype(dtype)
 
-        def _obs_vec(p_blk, v_blk, a_blk):
-            parts = [p_blk, v_blk] + ([a_blk] if config.learn_jerk else [])
-            return jnp.concatenate(parts, axis=-1)
+        def obs_vec(pos, vel, acc):
+            return jnp.concatenate([pos, vel] + ([acc] if config.learn_jerk else []), axis=-1)
 
+        wall = last['wall'] > 0.5
         final_obs = {
-            'observation': _obs_vec(f_mp, f_mv, f_acc),
-            'achieved_goal': f_ag,
-            'desired_goal': old_goal,
+            'observation': obs_vec(pair('f_mpx', 'f_mpy'), pair('f_mvx', 'f_mvy'), pair('f_qax', 'f_qay')),
+            'achieved_goal': pair('f_agx', 'f_agy'),
+            'desired_goal': state.goal.astype(dtype),
         }
         out_obs = {
-            'observation': _obs_vec(s_mp, s_mv, acc),
-            'achieved_goal': s_ag,
+            'observation': obs_vec(pair('s_mpx', 's_mpy'), pair('s_mvx', 's_mvy'), new_state.acc),
+            'achieved_goal': pair('s_agx', 's_agy'),
             'desired_goal': new_state.goal,
         }
         info = {
-            'is_success': reached & ~wall,
+            'is_success': (last['reached'] > 0.5) & ~wall,
             'mover_collision': jnp.zeros((b,), jnp.bool_),
             'wall_collision': wall,
             'final_observation': final_obs,
-            'reset_stalled': stalled,
-            'reset_trials': trials,
+            'reset_stalled': last['stalled'] > 0.5,
+            'reset_trials': last['trials'].astype(jnp.int32),
         }
-        return new_state, out_obs, reward, terminated, truncated, info
+        return new_state, out_obs, reward[0].astype(dtype), term[0] > 0.5, trunc[0] > 0.5, info
 
-    step_fn.noise_planes = fused.noise_planes
     return step_fn
 
 
-def make_fused_rollout(
-    config: PushingConfig, params: PushingParams, interpret: bool = False, cand_k: int = 32,
-    steps_per_launch: int = 1,
-):
-    """Plane-form K-step fused rollout for pushing — the primary benchmark
-    family (BASELINE.json).  Same design as ``planning.make_fused_rollout``:
-    the env state stays in the kernel's plane layout across a ``lax.scan``
-    (one pack/unpack per rollout instead of per step, removing the fixed
-    ~30 µs/step of XLA glue), actions precomputed (random/offline policies;
-    for a REACTIVE policy at the same rate use ``make_reactive_rollout``).
-
-    ``steps_per_launch > 1`` runs that many complete autoreset env steps
-    inside ONE kernel launch (``ops/pallas_step._pushing_rollout_kernel``);
-    measured perf-neutral on v5e (in-graph launches cost ~0.3 µs — see
-    ``planning.make_fused_rollout``), so the default stays 1.
-
-    Returns ``rollout(state, actions[T, B, 2], seed) -> (final PushingState,
-    rewards [T, B], terminated [T, B], truncated [T, B])`` with the
-    reference's reward/termination semantics
-    (benchmark_pushing_env.py:457-527); episode restarts run in-kernel.
-    """
-    from gymnasium_planar_robotics_tpu.models.planning import _chunked_rollout
+def make_fused_rollout(config: PushingConfig, params: PushingParams, interpret: bool = False, cand_k: int = 32):
+    """``T`` pushing autoreset env steps as ONE fused-kernel launch, for
+    precomputed actions — same contract as ``planning.make_fused_rollout``:
+    ``rollout(state, actions[T, B, 2], seed, env_offset=0) -> (final
+    PushingState, rewards [T, B], terminated [T, B], truncated [T, B])``
+    with the reference's reward/termination semantics
+    (benchmark_pushing_env.py:457-527) or the dense shaping."""
     from gymnasium_planar_robotics_tpu.ops import pallas_step
 
-    assert np.asarray(params.v_max).dtype == np.float32, 'f64 parity mode has no fused kernel'
-    assert config.reward_mode == 'sparse', 'fused pushing paths compute the sparse reward in-plane'
-    fused = pallas_step.make_fused_pushing_autoreset_cycles(
-        config, params, interpret=interpret, cand_k=cand_k
-    )
-    raw = fused.raw_planes
     limit = params.j_max if config.learn_jerk else params.a_max
-    thr = float(np.asarray(params.threshold_pos))
-    max_steps = float(config.max_episode_steps)
 
-    def rollout(state: PushingState, actions: jnp.ndarray, seed):
-        from gymnasium_planar_robotics_tpu.models.planning import _pad_rollout_batch
-
-        b0 = state.pos.shape[0]
-        actions = jnp.clip(jnp.asarray(actions, jnp.float32).reshape(-1, b0, 2), -limit, limit)
-        state, actions, b = _pad_rollout_batch(state, actions, b0)
-        rows = b // 128
+    def rollout(state: PushingState, actions: jnp.ndarray, seed, env_offset=0):
+        b = state.pos.shape[0]
         dtype = state.pos.dtype
-
-        def plane(x, comp):
-            return x.reshape(b, 2)[:, comp].reshape(rows, 128).astype(jnp.float32)
-
-        def scalar_plane(x):
-            return x.astype(jnp.float32).reshape(rows, 128)
-
-        planes0 = []
-        for arr in (state.pos, state.vel, state.acc, state.act, state.obj_pos, state.obj_vel):
-            planes0 += [plane(arr, 0), plane(arr, 1)]
-        planes0 += [scalar_plane(state.obj_yaw), scalar_plane(state.obj_w),
-                    scalar_plane(state.mover_z), scalar_plane(state.mover_vz),
-                    plane(state.goal, 0), plane(state.goal, 1), scalar_plane(state.steps)]
-        planes0 = tuple(planes0)
-        action_planes = actions.reshape(-1, b, 2).transpose(0, 2, 1).reshape(-1, 2, rows, 128)
-        T = action_planes.shape[0]
-
-        def reward_from(wall, reached, trunc):
-            rew = jnp.where(wall > 0.5, REWARD_WALL_COLLISION,
-                            jnp.where(reached > 0.5, 0.0, -1.0))
-            return rew, wall, trunc
-
-        if steps_per_launch > 1:
-            planes, rew, term, trunc = _chunked_rollout(
-                fused.raw_rollout, planes0, action_planes, seed,
-                min(steps_per_launch, T), reward_from,
-            )
-        else:
-            def body(carry, a_t):
-                planes, t = carry
-                outs = raw(planes, (a_t[0], a_t[1]), seed + t)
-                new_planes = tuple(outs[:19])
-                wall = outs[33]
-                # reference scoring from the pre-reset ('final') observation:
-                # achieved (outs 29/30) vs the OLD goal (carried planes 16/17)
-                ddx = outs[29] - planes[16]
-                ddy = outs[30] - planes[17]
-                reached = jnp.where(jnp.sqrt(ddx * ddx + ddy * ddy) <= thr, 1.0, 0.0)
-                trunc_t = jnp.where(planes[18] + 1.0 >= max_steps, 1.0, 0.0)
-                return (new_planes, t + 1), reward_from(wall, reached, trunc_t)
-
-            (planes, _), (rew, term, trunc) = jax.lax.scan(
-                body, (planes0, jnp.asarray(0, jnp.int32)), action_planes
-            )
-
-        def pair(i):
-            return jnp.stack([planes[i].reshape(b), planes[i + 1].reshape(b)], -1).astype(dtype)
-
-        def scalar(i):
-            return planes[i].reshape(b).astype(dtype)
-
-        final = PushingState(
-            pos=pair(0), vel=pair(2), acc=pair(4), act=pair(6),
-            obj_pos=pair(8), obj_vel=pair(10), obj_yaw=scalar(12), obj_w=scalar(13),
-            mover_z=scalar(14), mover_vz=scalar(15), goal=pair(16),
-            key=jax.vmap(lambda k: jax.random.split(k, 1)[0])(state.key),
-            steps=planes[18].reshape(b).astype(jnp.int32),
-        )
-        T = rew.shape[0]
-        final = jax.tree_util.tree_map(lambda x: x[:b0], final)
-        return (final, rew.reshape(T, b)[:, :b0].astype(dtype),
-                term.reshape(T, b)[:, :b0] > 0.5, trunc.reshape(T, b)[:, :b0] > 0.5)
-
-    return rollout
-
-
-def make_reactive_rollout(
-    config: PushingConfig, params: PushingParams, policy_step, num_steps: int,
-    interpret: bool = False, cand_k: int = 32, dense_reward: bool = False,
-):
-    """Plane-form rollout driven by a REACTIVE policy (round-5 VERDICT #3):
-    the env state stays in the kernel's plane layout across the whole scan
-    (like ``make_fused_rollout``) while ``policy_step`` evaluates the policy
-    between kernel launches on observation FEATURES assembled directly from
-    the kernel's post-reset observation planes — so PPO/HER training rollouts
-    run at the plane-form rate instead of paying the per-step pack/unpack
-    glue of the per-step fused path.
-
-    ``policy_step(pol, key, obs_pm [12, B]) -> (action [2, B], aux pytree)``
-    — PLANE-MAJOR on both sides (``ppo.apply_pm`` / ``sample_action_pm``):
-    the 12 features are the training recipes' layout
-    (tools/transfer_eval._pushing_vec: mover pos+vel, achieved, desired,
-    achieved-mover, desired-achieved) stacked batch-last, which assembles
-    from the kernel's observation planes and feeds back into action planes
-    with ZERO per-step relayout; ``aux`` is stacked over steps (PPO puts
-    (raw [A, B], logp [B], value [B]) there, returned batch-last).
-
-    Returns ``rollout(state, pol, key, seed) -> (final PushingState, traj,
-    last_obs_vec)`` with ``traj = (obs_vec [T,B,F], aux, reward [T,B],
-    terminated [T,B], truncated [T,B], final_vec [T,B,F])`` — ``final_vec``
-    is the PRE-reset observation's features (the truncation bootstrap input).
-    ``reward`` is the reference's sparse scoring, or the dense training
-    shaping of ``reward_mode='dense'`` when ``dense_reward=True`` (computed
-    from the pre-reset observation planes; obs noise is 1e-5, irrelevant to
-    shaping).  Differences from the per-step path, by design: episode
-    randomness comes from the kernels' hardware PRNG (seeded ``seed + t``)
-    instead of the carried key array, and the FIRST step's observation is
-    noise-free (assembled from state planes; subsequent steps use the
-    kernel's noisy observation planes).  Reference semantics:
-    benchmark_pushing_env.py:457-527.
-    """
-    from gymnasium_planar_robotics_tpu.ops import pallas_step
-
-    assert not config.learn_jerk, 'reactive rollout: acc mode only (the 12-feature recipe layout)'
-    assert np.asarray(params.v_max).dtype == np.float32, 'f64 parity mode has no fused kernel'
-    fused = pallas_step.make_fused_pushing_autoreset_cycles(
-        config, params, interpret=interpret, cand_k=cand_k, emit_features=True
-    )
-    raw = fused.raw_planes
-    a_max = params.a_max
-    thr = float(np.asarray(params.threshold_pos))
-    max_steps = float(config.max_episode_steps)
-
-    def features(mpx, mpy, mvx, mvy, agx, agy, gx, gy):
-        """[rows, 128] planes -> PLANE-MAJOR [12, rows, 128] feature block —
-        only used for the FIRST step's (noise-free) observation; every
-        subsequent step consumes the kernel-emitted contiguous block
-        (pallas_step._pushing_autoreset_kernel emit_features), whose [12, B]
-        policy view is a free reshape."""
-        cols = (mpx, mpy, mvx, mvy, agx, agy, gx, gy,
-                agx - mpx, agy - mpy, gx - agx, gy - agy)
-        return jnp.stack(cols, axis=0)
-
-    def rollout(state: PushingState, pol, key, seed, policy_xs=None):
-        from gymnasium_planar_robotics_tpu.models.planning import _pad_rollout_batch
-
-        b0 = state.pos.shape[0]
-        state, _, b = _pad_rollout_batch(state, jnp.zeros((1, b0, 2), jnp.float32), b0)
-        rows = b // 128
-        dtype = state.pos.dtype
-        seed = jnp.asarray(seed, jnp.int32)
-
-        def plane(x, comp):
-            return x.reshape(b, 2)[:, comp].reshape(rows, 128).astype(jnp.float32)
-
-        def scalar_plane(x):
-            return x.astype(jnp.float32).reshape(rows, 128)
-
-        planes0 = []
-        for arr in (state.pos, state.vel, state.acc, state.act, state.obj_pos, state.obj_vel):
-            planes0 += [plane(arr, 0), plane(arr, 1)]
-        planes0 += [scalar_plane(state.obj_yaw), scalar_plane(state.obj_w),
-                    scalar_plane(state.mover_z), scalar_plane(state.mover_vz),
-                    plane(state.goal, 0), plane(state.goal, 1), scalar_plane(state.steps)]
-        planes0 = tuple(planes0)
-        # first observation from state planes (noise-free; see docstring)
-        feat0 = features(planes0[0], planes0[1], planes0[2], planes0[3],
-                         planes0[8], planes0[9], planes0[16], planes0[17])
-
-        def body(carry, x):
-            t, x_t = x
-            planes, feat = carry
-            obs_vec = feat.reshape(12, -1)  # free: the block is contiguous
-            # policy_xs (e.g. pre-drawn PPO exploration noise) replaces the
-            # per-step fold_in+draw — one vectorized draw outside the scan
-            # instead of T in-scan threefry calls (~1 us/step on v5e)
-            k_t = x_t if policy_xs is not None else jax.random.fold_in(key, t)
-            action, aux = policy_step(pol, k_t, obs_vec)
-            action = jnp.clip(jnp.asarray(action, jnp.float32), -a_max, a_max)
-            a_pl = (action[0].reshape(rows, 128), action[1].reshape(rows, 128))
-            outs = raw(planes, a_pl, seed + t)
-            new_planes = tuple(outs[:19])
-            wall = outs[33]
-            feat_fin = outs[37]  # pre-reset features (kernel-emitted block)
-            # reference scoring from the feature block's own difference rows:
-            # rows 10/11 = old_goal - achieved, rows 8/9 = achieved - mover
-            d_og = jnp.sqrt(feat_fin[10] * feat_fin[10] + feat_fin[11] * feat_fin[11])
-            reached = d_og <= thr
-            trunc = planes[18] + 1.0 >= max_steps
-            term = wall > 0.5
-            if dense_reward:
-                # the training shaping of _step_core's dense mode, from the
-                # pre-reset observation features
-                d_mo = jnp.sqrt(feat_fin[8] * feat_fin[8] + feat_fin[9] * feat_fin[9])
-                approach = -0.3 * jnp.maximum(d_mo - 0.105, 0.0)
-                retreat = 0.5 * jnp.minimum(d_mo, 0.15)
-                shaped = -d_og + jnp.where(reached, retreat, approach)
-                rew = jnp.where(term, REWARD_WALL_COLLISION, shaped)
-            else:
-                rew = jnp.where(term, REWARD_WALL_COLLISION,
-                                jnp.where(reached, 0.0, -1.0))
-            out_t = (obs_vec, aux, rew.reshape(-1), term.reshape(-1), trunc.reshape(-1),
-                     feat_fin.reshape(12, -1))
-            return (new_planes, outs[36]), out_t
-
-        ts = jnp.arange(num_steps, dtype=jnp.int32)
-        (planes, feat), traj = jax.lax.scan(
-            body, (planes0, feat0), (ts, policy_xs if policy_xs is not None else ts)
-        )
-        last_obs_vec = feat.reshape(12, -1)[:, :b0].T
-
-        def pair(i):
-            return jnp.stack([planes[i].reshape(b), planes[i + 1].reshape(b)], -1).astype(dtype)
-
-        def scalar(i):
-            return planes[i].reshape(b).astype(dtype)
-
-        final = PushingState(
-            pos=pair(0), vel=pair(2), acc=pair(4), act=pair(6),
-            obj_pos=pair(8), obj_vel=pair(10), obj_yaw=scalar(12), obj_w=scalar(13),
-            mover_z=scalar(14), mover_vz=scalar(15), goal=pair(16),
-            key=jax.vmap(lambda k: jax.random.split(k, 1)[0])(state.key),
-            steps=planes[18].reshape(b).astype(jnp.int32),
-        )
-        final = jax.tree_util.tree_map(lambda x: x[:b0], final)
-        obs_vec, aux, rew, term, trunc, final_vec = traj
-        # ONE relayout per rollout (vs one per step): obs/final features come
-        # out of the scan plane-major [T, F, B] and the PPO update consumes
-        # [T, B, F]; aux leaves ([T, A, B] actions, [T, B] scalars) keep the
-        # plane-major batch-last layout (the caller transposes what it needs)
-        # every traj leaf leaves as [T, B, ...]: per-step aux is batch-LAST
-        # (plane-major), so move its trailing batch axis to axis 1 — one
-        # relayout per rollout, and a uniform P(None, 'data') sharding spec
-        traj = (obs_vec[..., :b0].transpose(0, 2, 1),
-                jax.tree_util.tree_map(lambda x: jnp.moveaxis(x[..., :b0], -1, 1), aux),
-                rew[:, :b0].astype(dtype), term[:, :b0], trunc[:, :b0],
-                final_vec[..., :b0].transpose(0, 2, 1))
-        return final, traj, last_obs_vec
+        actions = jnp.clip(jnp.asarray(actions, jnp.float32).reshape(-1, b, 2), -limit, limit)
+        run = pallas_step.pushing_kernel(config, params, actions.shape[0], cand_k=cand_k, interpret=interpret)
+        streams = pallas_step.env_streams(seed, env_offset + jnp.arange(b, dtype=jnp.int32))
+        vec, (reward, term, trunc), _ = run(streams, 0, _kernel_state(state), (actions[..., 0], actions[..., 1]))
+        keys = jax.vmap(lambda k: jax.random.split(k, 1)[0])(state.key)
+        return _state_from_kernel(vec, keys, dtype), reward.astype(dtype), term > 0.5, trunc > 0.5
 
     return rollout
 

@@ -1,6 +1,6 @@
 """Batched 2D geometry kernels in JAX.
 
-TPU-native replacement for the reference's NumPy geometry helpers
+Batched replacement for the reference's NumPy geometry helpers
 (``/root/reference/gymnasium_planar_robotics/utils/geometry_2D_utils.py``).
 
 Semantics are intentionally identical to the reference (including the
@@ -13,11 +13,12 @@ ours).
 Everything is pure ``jnp``, branch-free, shape-polymorphic over leading batch
 dimensions, and safe under ``vmap``/``jit``.  The orientation determinants
 are expanded to closed-form 2D cross products instead of 3x3
-``np.linalg.det`` calls — same values, pure VPU arithmetic.
+``np.linalg.det`` calls — same values, pure elementwise arithmetic.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from gymnasium_planar_robotics_tpu.ops import rotations
@@ -111,7 +112,9 @@ def get_2D_rect_vertices(qpos: jnp.ndarray, size: jnp.ndarray) -> jnp.ndarray:
     vz = jnp.stack([zeros, zeros, zeros, zeros], axis=-1)
     verts_l = jnp.stack([vx, vy, vz], axis=-2)
 
-    verts_b = jnp.matmul(rot, verts_l)[..., :2, :]
+    # full float32: XLA's default precision on GPUs (TF32, ~3 decimal digits)
+    # would move vertices by up to ~1e-4 m and flip wall/collision decisions
+    verts_b = jnp.matmul(rot, verts_l, precision=jax.lax.Precision.HIGHEST)[..., :2, :]
     return verts_b + qpos[..., :2, None]
 
 

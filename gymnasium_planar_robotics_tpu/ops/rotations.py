@@ -1,6 +1,6 @@
 """Batched rotation utilities in JAX.
 
-TPU-native replacement for the reference's NumPy rotation helpers
+Batched replacement for the reference's NumPy rotation helpers
 (``/root/reference/gymnasium_planar_robotics/utils/rotations_utils.py``).
 Conventions match MuJoCo: quaternions are (w, x, y, z), Euler angles are
 relative 'xyz'.  Everything here is pure ``jnp``, shape-polymorphic over
@@ -10,7 +10,7 @@ Unlike the reference (which falls back to a per-item ``np.nditer`` loop for
 ``mat2quat``, see rotations_utils.py:216-226), every function here is fully
 vectorized: ``mat2quat`` uses the branch-free Shepperd/Sarabandi selection
 computed with ``jnp.where`` instead of an eigen-decomposition, which maps to
-pure VPU code under XLA.
+pure elementwise code under XLA.
 """
 
 from __future__ import annotations

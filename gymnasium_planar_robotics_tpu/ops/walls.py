@@ -5,7 +5,7 @@ Branch-free, batched re-design of the reference's ``qpos_is_valid``
 The reference gathers the (qpos, covering-tile) pairs with ``np.where`` and
 applies a chain of scatter-style index updates; here the same decision
 procedure is evaluated *densely* over the full ``[Q, Tx, Ty]`` cube of
-(position, grid-cell) pairs with ``where``-masks — a direct VPU mapping with
+(position, grid-cell) pairs with ``where``-masks — a direct elementwise mapping with
 no data-dependent shapes, identical results.
 
 Semantics (kept bit-for-bit with the reference, including its quirks):

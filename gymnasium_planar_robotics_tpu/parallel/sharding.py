@@ -5,13 +5,13 @@ env per process).  Here the batch axis *is* the parallelism model: env state
 is a pytree with a leading ``[B, ...]`` axis, sharded over a ``data`` mesh
 axis with ``NamedSharding``; every physics/collision/reward op is per-env
 local, so a sharded ``step`` compiles to pure per-device compute with zero
-communication, and XLA inserts ICI collectives only where metrics or a
-learner actually gather across devices.
+communication, and XLA inserts collectives only where metrics or a learner
+actually gather across devices.
 
 Multi-host: construct the mesh over ``jax.devices()`` (all hosts' devices);
 per-host batch shards follow from the same ``NamedSharding``.  Tested on a
-virtual 8-device CPU mesh (tests/test_sharding.py) and dry-run over N virtual
-devices by the driver (``__graft_entry__.dryrun_multichip``).
+virtual 8-device CPU mesh (tests/test_sharding.py) and on four GPUs of one
+host (``chip_smoke.py --four-cards``).
 """
 
 from __future__ import annotations
@@ -74,82 +74,39 @@ def sharded_step_fn(
 def make_sharded_fused_step(
     model, config, params, mesh: Mesh, axis_name: str = DATA_AXIS, **fused_kw
 ) -> Callable:
-    """The fused Pallas autoreset step under ``jax.shard_map`` over the data
-    mesh — each device runs the SAME whole-shard mega-kernel on its local
-    ``[B/D, ...]`` rows, so mesh-sharded multi-chip execution keeps the fused
-    single-chip rate instead of falling back to the vmapped XLA path.
+    """The fused autoreset kernel step under ``jax.shard_map`` over the data
+    mesh: each device runs the kernel on its local ``[B/D, ...]`` rows.
 
-    Per-device randomness comes for free: the kernel seed is derived from the
-    local shard's first env key (``models/planning.make_fused_step_autoreset``),
-    and per-env observation noise uses per-env keys, so results are
-    deterministic per seed at ANY mesh size.  With ``inject_noise=True``
-    (CI/interpret mode) the uniform planes are sharded on the batch axis and
-    each device consumes exactly its lanes' planes — sharded output is
-    bit-identical to the unsharded fused kernel (tests/test_sharding.py).
-
-    Constraints: ``B % mesh.size == 0`` (equal shards). Per-device batches
-    that aren't a multiple of 128 lane-pad inside the kernel wrappers
-    (``ops/pallas_step._pad_lanes``) — any shard size keeps the fused path.
-
-    Returns ``step(state, action[, noise]) -> (state, obs, reward, terminated,
-    truncated, info)`` with a ``.noise_planes`` attribute; jit it with the
-    batch sharded on ``axis_name``.
+    Each env's noise stream comes from its own PRNG key
+    (``models/planning.make_fused_step_autoreset``), so the sharded step is
+    bit-identical to the unsharded one at any mesh size.  ``B`` must divide
+    evenly over the mesh; masked block tails in the kernel take any
+    per-device batch.  Returns ``step(state, action) -> (state, obs, reward,
+    terminated, truncated, info)``; jit it with the batch sharded on
+    ``axis_name``.
     """
-    fused = model.make_fused_step_autoreset(config, params, **fused_kw)
-    spec = P(axis_name)
-    if fused_kw.get('inject_noise', False):
+    from gymnasium_planar_robotics_tpu.ops import pallas_step
 
-        def raw(state, action, noise):
-            return fused(state, action, noise=noise)
-
-        # check_vma=False: the Pallas out_shapes carry no varying-mesh-axis
-        # metadata; the step is per-env local (no collectives), so the check
-        # adds nothing here
-        sharded = jax.shard_map(
-            raw, mesh=mesh, in_specs=(spec, spec, P(None, axis_name)), out_specs=spec,
-            check_vma=False,
-        )
-
-        def step(state, action, noise=None):
-            return sharded(state, action, noise)
-
-    else:
-
-        def raw(state, action):
-            return fused(state, action)
-
-        sharded = jax.shard_map(
-            raw, mesh=mesh, in_specs=(spec, spec), out_specs=spec, check_vma=False
-        )
-
-        def step(state, action, noise=None):
-            assert noise is None, 'this step was built without inject_noise'
-            return sharded(state, action)
-
-    step.noise_planes = fused.noise_planes
-    return step
+    return pallas_step.shard_step(model.make_fused_step_autoreset(config, params, **fused_kw), mesh, axis_name)
 
 
 def make_sharded_fused_rollout(
     model, config, params, mesh: Mesh, axis_name: str = DATA_AXIS, **fused_kw
 ) -> Callable:
-    """The plane-form K-step fused rollout under ``jax.shard_map`` — the
-    round-4 headline path (``model.make_fused_rollout``) on a device mesh:
-    each device scans its local ``[B/D]`` shard's plane set with zero
-    cross-device communication; per-device hardware-PRNG streams are
-    decorrelated by an ``axis_index``-derived seed offset (deterministic per
-    (seed, mesh size)).
+    """The one-launch fused rollout (``model.make_fused_rollout``) under
+    ``jax.shard_map``: each device runs its local ``[B/D]`` shard with zero
+    cross-device communication, keyed by the shard's global env offset, so
+    the result equals the unsharded rollout with the same seed.
 
-    Constraints: ``B % (128 * mesh.size) == 0`` (the raw plane path does not
-    lane-pad).  Returns ``rollout(state, actions[T, B, A], seed) ->
-    (final state, rewards [T, B], terminated [T, B], truncated [T, B])``;
-    jit it with the batch axes sharded on ``axis_name``.
+    Returns ``rollout(state, actions[T, B, A], seed) -> (final state,
+    rewards [T, B], terminated [T, B], truncated [T, B])``; jit it with the
+    batch axes sharded on ``axis_name``.
     """
     roll = model.make_fused_rollout(config, params, **fused_kw)
 
     def local(state, actions, seed):
-        dev = jax.lax.axis_index(axis_name)
-        return roll(state, actions, seed + dev * jnp.int32(1 << 20))
+        b_local = actions.shape[1]
+        return roll(state, actions, seed, env_offset=jax.lax.axis_index(axis_name) * b_local)
 
     spec = P(axis_name)
     sharded = jax.shard_map(
@@ -165,70 +122,13 @@ def make_sharded_fused_rollout(
     return rollout
 
 
-def make_sharded_reactive_rollout(
-    model, config, params, policy_step, num_steps: int, mesh: Mesh,
-    axis_name: str = DATA_AXIS, **kw
-) -> Callable:
-    """The REACTIVE plane-form rollout (``model.make_reactive_rollout``,
-    round 5) under ``jax.shard_map``: each device scans its local shard's
-    plane set AND evaluates the policy MLP on its local feature rows — the
-    policy parameters are replicated (classic DP), so training rollouts run
-    at the plane-form rate on any mesh with zero cross-device communication
-    inside the rollout (gradients all-reduce outside, in the PPO update).
-
-    Per-device decorrelation: the kernel hardware-PRNG seed gets an
-    ``axis_index`` offset (as ``make_sharded_fused_rollout``) and the policy
-    sampling key is ``fold_in(key, axis_index)``.
-
-    Returns ``rollout(state, pol, key, seed) -> (final_state, traj,
-    last_obs_vec)`` — jit it with ``state`` (and traj outputs) sharded on
-    ``axis_name`` and ``pol``/``key``/``seed`` replicated.
-    """
-    roll = model.make_reactive_rollout(config, params, policy_step, num_steps, **kw)
-
-    def local(state, pol, key, seed):
-        dev = jax.lax.axis_index(axis_name)
-        return roll(state, pol, jax.random.fold_in(key, dev), seed + dev * jnp.int32(1 << 20))
-
-    def local_xs(state, pol, key, seed, xs):
-        dev = jax.lax.axis_index(axis_name)
-        return roll(state, pol, jax.random.fold_in(key, dev),
-                    seed + dev * jnp.int32(1 << 20), policy_xs=xs)
-
-    spec = P(axis_name)
-    # traj = (obs_vec [T,B,F], aux pytree [T,B,...], reward/term/trunc [T,B],
-    # final_vec [T,B,F]) — all batch-on-axis-1
-    out_specs = (spec, P(None, axis_name), spec)
-    sharded = jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(spec, P(), P(), P()),
-        out_specs=out_specs,
-        check_vma=False,
-    )
-    # policy_xs leaves are batch-LAST [T, ..., B] (e.g. PPO's pre-drawn
-    # exploration noise [T, A, B]) and shard with the batch
-    sharded_xs = jax.shard_map(
-        local_xs, mesh=mesh,
-        in_specs=(spec, P(), P(), P(), P(None, None, axis_name)),
-        out_specs=out_specs,
-        check_vma=False,
-    )
-
-    def rollout(state, pol, key, seed, policy_xs=None):
-        if policy_xs is None:
-            return sharded(state, pol, key, jnp.asarray(seed, jnp.int32))
-        return sharded_xs(state, pol, key, jnp.asarray(seed, jnp.int32), policy_xs)
-
-    return rollout
-
-
 def metrics_summary(reward: jax.Array, terminated: jax.Array, info: dict) -> dict[str, jax.Array]:
     """Replicated scalar metrics from sharded per-env arrays.
 
     Written as plain reductions: under ``jit`` with sharded inputs, XLA lowers
-    these to per-device partial reductions + an ICI all-reduce — the
-    TPU-native equivalent of the reference's info-dict telemetry
-    (SURVEY.md §5 'metrics'), scaled to the whole batch.
+    these to per-device partial reductions + an all-reduce — the batched
+    equivalent of the reference's info-dict telemetry (SURVEY.md §5
+    'metrics'), scaled to the whole batch.
     """
     return {
         'reward_mean': jnp.mean(reward),

@@ -1,4 +1,4 @@
-"""Live 3D MuJoCo viewing of the TPU engine's state.
+"""Live 3D MuJoCo viewing of the JAX engine's state.
 
 Counterpart of the reference's rendering stack
 (``/root/reference/gymnasium_planar_robotics/utils/rendering.py``):
@@ -9,7 +9,7 @@ Counterpart of the reference's rendering stack
   geom-group filtering (reference ``MujocoOffScreenViewer``,
   ``rendering.py:69-96``).
 - The reference renders the state MuJoCo itself integrates; here physics
-  lives on the TPU, so the collection owns a *mirror* ``MjModel``/``MjData``
+  lives on the accelerator, so the collection owns a *mirror* ``MjModel``/``MjData``
   built once from ``utils/scene_export`` and ``update(state)`` streams the
   engine's poses into it (qpos write + ``mj_forward``) — the
   ``reload_model``-per-reset of the reference (``rendering.py:258-280``)
@@ -127,7 +127,7 @@ def make_window_viewer_hud(model, data):
 
 
 class MujocoViewerCollection:
-    """Stream TPU env state into a mirror MuJoCo model and render it.
+    """Stream the engine's env state into a mirror MuJoCo model and render it.
 
     :param params: ``PlanningParams`` or ``PushingParams`` pytree
     :param num_movers: movers in the scene (defaults from params)

@@ -1,6 +1,6 @@
 """Host-side top-down rendering.
 
-TPU-native replacement for the reference's viewer stack
+Batched-engine replacement for the reference's viewer stack
 (``/root/reference/gymnasium_planar_robotics/utils/rendering.py``): instead of
 OpenGL viewers bound to a live MuJoCo model, rendering is a pure host-side
 function of gathered state — the same top-down debug view as the reference's

@@ -2,7 +2,7 @@
 
 The reference *is driven by* generated MJCF
 (``/root/reference/gymnasium_planar_robotics/envs/basic_envs.py:933-1203``);
-the TPU engine needs no XML at all, but users coming from the reference still
+the JAX engine needs no XML at all, but users coming from the reference still
 want to (a) view a configuration in a MuJoCo viewer and (b) cross-validate
 trajectories against the MuJoCo engine.  This module renders a params
 pytree into an equivalent MJCF string, honoring the reference's seven

@@ -5,61 +5,91 @@ pybind11).  Rollout batches (pytrees of arrays) are packed into framed binary
 shards by a background thread so the device loop never blocks on disk; the
 reader serves random access by frame id for shuffled offline-RL batches.
 
-Falls back to a pure-Python implementation (same on-disk format) when the
-shared library hasn't been built — build it with
-``make -C native/trajstore``.
+The shared library is built from ``native/trajstore`` with its Makefile at
+first use (or ahead of time with ``make -C native/trajstore``); where no C++
+toolchain is available the pure-Python implementation (same on-disk format)
+takes over.
 """
 
 from __future__ import annotations
 
 import ctypes
 import io
+import os
 import struct
+import subprocess
+import warnings
 from pathlib import Path
 
 import numpy as np
 
-_LIB_PATHS = [
-    Path(__file__).parent.parent.parent / 'native' / 'trajstore' / 'libtrajstore.so',
-]
+_LIB_PATH = Path(__file__).parent.parent.parent / 'native' / 'trajstore' / 'libtrajstore.so'
 
 _MAGIC = 0x54524A31
 
 
+def _build(target: Path) -> None:
+    """Compile the library with its Makefile into a private file name, then
+    rename it into place atomically, so processes that build at the same
+    time never load a half-written library."""
+    tmp = target.with_name(f'{target.name}.{os.getpid()}.tmp')
+    try:
+        subprocess.run(
+            ['make', '-s', '-C', str(target.parent), f'TARGET={tmp.name}'],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, target)
+    except (OSError, subprocess.CalledProcessError, subprocess.TimeoutExpired) as e:
+        warnings.warn(f'building {target} failed ({e}); using the Python trajectory writer', stacklevel=3)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def _load_lib():
-    for p in _LIB_PATHS:
-        if p.exists():
-            lib = ctypes.CDLL(str(p))
-            lib.ts_writer_open.restype = ctypes.c_void_p
-            lib.ts_writer_open.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64]
-            lib.ts_writer_append.restype = ctypes.c_int
-            lib.ts_writer_append.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
-            lib.ts_writer_frames_written.restype = ctypes.c_uint64
-            lib.ts_writer_frames_written.argtypes = [ctypes.c_void_p]
-            lib.ts_writer_queue_bytes.restype = ctypes.c_uint64
-            lib.ts_writer_queue_bytes.argtypes = [ctypes.c_void_p]
-            lib.ts_writer_close.restype = ctypes.c_int
-            lib.ts_writer_close.argtypes = [ctypes.c_void_p]
-            lib.ts_reader_open.restype = ctypes.c_void_p
-            lib.ts_reader_open.argtypes = [ctypes.c_char_p]
-            lib.ts_reader_count.restype = ctypes.c_uint64
-            lib.ts_reader_count.argtypes = [ctypes.c_void_p]
-            lib.ts_reader_length.restype = ctypes.c_uint64
-            lib.ts_reader_length.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
-            lib.ts_reader_get.restype = ctypes.c_int64
-            lib.ts_reader_get.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64]
-            lib.ts_reader_close.restype = None
-            lib.ts_reader_close.argtypes = [ctypes.c_void_p]
-            return lib
-    return None
+    p = _LIB_PATH
+    if not p.exists() and (p.parent / 'Makefile').exists():
+        _build(p)
+    if not p.exists():
+        return None
+    lib = ctypes.CDLL(str(p))
+    lib.ts_writer_open.restype = ctypes.c_void_p
+    lib.ts_writer_open.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64]
+    lib.ts_writer_append.restype = ctypes.c_int
+    lib.ts_writer_append.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
+    lib.ts_writer_frames_written.restype = ctypes.c_uint64
+    lib.ts_writer_frames_written.argtypes = [ctypes.c_void_p]
+    lib.ts_writer_queue_bytes.restype = ctypes.c_uint64
+    lib.ts_writer_queue_bytes.argtypes = [ctypes.c_void_p]
+    lib.ts_writer_close.restype = ctypes.c_int
+    lib.ts_writer_close.argtypes = [ctypes.c_void_p]
+    lib.ts_reader_open.restype = ctypes.c_void_p
+    lib.ts_reader_open.argtypes = [ctypes.c_char_p]
+    lib.ts_reader_count.restype = ctypes.c_uint64
+    lib.ts_reader_count.argtypes = [ctypes.c_void_p]
+    lib.ts_reader_length.restype = ctypes.c_uint64
+    lib.ts_reader_length.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.ts_reader_get.restype = ctypes.c_int64
+    lib.ts_reader_get.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p, ctypes.c_uint64]
+    lib.ts_reader_close.restype = None
+    lib.ts_reader_close.argtypes = [ctypes.c_void_p]
+    return lib
 
 
-_LIB = _load_lib()
+_UNLOADED = object()
+_LIB = _UNLOADED  # the ctypes library once loaded; None: Python fallback
+
+
+def _lib():
+    """The native library, built and loaded on first use (None if unavailable)."""
+    global _LIB
+    if _LIB is _UNLOADED:
+        _LIB = _load_lib()
+    return _LIB
 
 
 def native_available() -> bool:
-    """True if the C++ trajstore library was found and loaded."""
-    return _LIB is not None
+    """True if the C++ trajstore library was built (or found) and loaded."""
+    return _lib() is not None
 
 
 def pack_pytree(tree) -> bytes:
@@ -88,7 +118,7 @@ class TrajWriter:
         self._dir = Path(directory)
         self._dir.mkdir(parents=True, exist_ok=True)
         self._native = None
-        if _LIB is not None:
+        if _lib() is not None:
             self._native = _LIB.ts_writer_open(str(self._dir).encode(), shard_bytes, max_queue_bytes)
         else:
             self._shard_bytes = shard_bytes
@@ -177,7 +207,7 @@ class TrajReader:
     def __init__(self, directory: str | Path):
         self._dir = Path(directory)
         self._native = None
-        if _LIB is not None:
+        if _lib() is not None:
             self._native = _LIB.ts_reader_open(str(self._dir).encode())
         else:
             raw = (self._dir / 'index.bin').read_bytes()

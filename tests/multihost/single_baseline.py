@@ -2,6 +2,7 @@
 the same sharded step + metrics reduction as worker.py, without
 jax.distributed, at the per-host batch size passed as argv[1]."""
 
+import os
 import sys
 import time
 
@@ -13,7 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-sys.path.insert(0, '/root/repo')
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 from gymnasium_planar_robotics_tpu.models import planning
 from gymnasium_planar_robotics_tpu.parallel import sharding
 

@@ -46,8 +46,8 @@ def test_collect_trajectories_example(tmp_path, capsys):
 
 
 def test_train_sharded_example(capsys):
-    """The sharded-fused PPO example runs end-to-end on a 2-device virtual
-    mesh with interpret-mode kernels (the multi-chip flagship pattern)."""
+    """The sharded PPO example runs end-to-end on a 2-device virtual mesh
+    with the fused kernel in interpret mode (the multi-device pattern)."""
     mod = _load('train_sharded')
     _run_main(mod, ['--batch', '256', '--iters', '2', '--devices', '2',
                     '--rollout', '2', '--cycles', '3', '--interpret'])

@@ -1,13 +1,18 @@
-"""Fused Pallas step vs. the XLA scan path (interpret mode on CPU).
+"""Fused step kernel (``ops/pallas_step``) vs. the XLA scan path, on the CPU.
 
-Bit-exact state match at std_noise=0 (same arithmetic, noise unused).
-Stochastic behavior — Box-Muller sensor noise, per-cycle collision checks,
-in-kernel reset sampling — is exercised through the kernels' injected-noise
-mode: pre-drawn uniform planes enter as a kernel input and flow through the
-exact production Box-Muller/sampling code (interpret mode's emulated hardware
-PRNG returns all-zero bits, so the hw-PRNG mode can only be validated on a
-real chip — see the verify drive).
+The kernel compiles for NVIDIA GPUs only; here it runs in Pallas' interpret
+mode (``interpret=True``), which executes the same kernel body.  At
+``std_noise=0`` the noise terms vanish, so cycle physics, flags and rewards
+must match the XLA step from identical states (bit-exact for planning, at
+FMA/ulp tolerance where contact couples quantities).  The counter-based
+generator is pure ``jnp`` and is checked directly; its stream is keyed by
+(stream id, step, draw), so kernel results must not depend on the block size,
+the batch layout, or how a rollout is split into launches.  What only the
+card can check (the compiled kernel) is marked ``gpu`` and runs through
+``chip_smoke.py``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,11 +20,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gymnasium_planar_robotics_tpu.models import planning
+from gymnasium_planar_robotics_tpu.models import planning, pushing
 from gymnasium_planar_robotics_tpu.ops import pallas_step
 
 
-def _mk(std=0.0, learn_jerk=False, layout=None, num_cycles=40):
+def _mk(std=0.0, learn_jerk=False, layout=None, num_cycles=12, **kw):
     return planning.make_planning_env(
         np.ones((3, 3)) if layout is None else layout,
         1,
@@ -30,6 +35,14 @@ def _mk(std=0.0, learn_jerk=False, layout=None, num_cycles=40):
         j_max=80.0,
         learn_jerk=learn_jerk,
         dtype=jnp.float32,
+        **kw,
+    )
+
+
+def _mk_push(std=0.0, learn_jerk=False, mover_params=None, num_cycles=40):
+    return pushing.make_pushing_env(
+        std_noise=std, learn_jerk=learn_jerk, dtype=jnp.float32, mover_params=mover_params,
+        num_cycles=num_cycles,
     )
 
 
@@ -38,8 +51,9 @@ def _random_states(config, params, b, seed=0):
     return state
 
 
-def _uniforms(key, n_planes, b):
-    return jax.random.uniform(key, (n_planes, b), jnp.float32)
+def _run_raw(kernel_fn, state_vec, actions, streams, step0=0):
+    """Raw kernel call: actions [K, B, 2]."""
+    return kernel_fn(streams, step0, state_vec, (actions[..., 0], actions[..., 1]))
 
 
 @pytest.mark.parametrize('shape', [(1, 1), (1, 4), (2, 2), (3, 3), (4, 5)])
@@ -80,608 +94,138 @@ def test_full_layout_wall_valid_specialization_exact(shape):
         )
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize('learn_jerk', [False, True])
-def test_fused_matches_xla_at_zero_noise(learn_jerk):
-    config, params = _mk(std=0.0, learn_jerk=learn_jerk, num_cycles=16)
-    assert pallas_step.supports(config, params)
-    b = 128
-    state = _random_states(config, params, b)
-    limit = 80.0 if learn_jerk else 8.0
-    actions = jax.random.uniform(jax.random.PRNGKey(1), (b, 2), jnp.float32, -limit, limit)
-
-    xla_state, _, xla_rew, xla_term, _, xla_info = planning.batched_step(config, params, state, actions)
-    fused_step = planning.make_fused_step(config, params, interpret=True)
-    f_state, _, f_rew, f_term, _, f_info = fused_step(state, actions)
-
-    np.testing.assert_array_equal(np.asarray(f_state.pos), np.asarray(xla_state.pos))
-    np.testing.assert_array_equal(np.asarray(f_state.vel), np.asarray(xla_state.vel))
-    np.testing.assert_array_equal(np.asarray(f_state.acc), np.asarray(xla_state.acc))
-    np.testing.assert_array_equal(np.asarray(f_info['wall_collision']), np.asarray(xla_info['wall_collision']))
-    # rewards use noisy obs positions drawn from different streams — at std=0
-    # they are identical
-    np.testing.assert_array_equal(np.asarray(f_rew), np.asarray(xla_rew))
-
-
-def test_fused_matches_xla_multi_step_holed_layout():
-    layout = np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1]])
-    config, params = _mk(std=0.0, layout=layout, num_cycles=12)
-    b = 128
-    state = _random_states(config, params, b, seed=3)
-    fused_step = planning.make_fused_step(config, params, interpret=True)
-    key = jax.random.PRNGKey(5)
-    for t in range(3):
-        key, k = jax.random.split(key)
-        actions = jax.random.uniform(k, (b, 2), jnp.float32, -8.0, 8.0)
-        xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-        fs, _, fr, ft, _, fi = fused_step(state, actions)
-        np.testing.assert_array_equal(np.asarray(fs.pos), np.asarray(xs.pos), err_msg=f't={t}')
-        np.testing.assert_array_equal(
-            np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']), err_msg=f't={t}'
-        )
-        # advance along the XLA trajectory (keys differ in the fused state)
-        state = xs
-
-
 def test_supports_gate():
     config, params = planning.make_planning_env(np.ones((3, 3)), 2, dtype=jnp.float32)
     assert not pallas_step.supports(config, params)  # M=2
     config, params = planning.make_planning_env(
         np.ones((3, 3)), 1, dtype=jnp.float32, collision_params={'shape': 'box', 'size': np.array([0.09, 0.09])}
     )
-    assert pallas_step.supports(config, params)  # box shape is in-kernel now
+    assert pallas_step.supports(config, params)  # box shape is in-kernel
     config, params = planning.make_planning_env(np.ones((3, 3)), 1, dtype=jnp.float64)
     assert not pallas_step.supports(config, params)  # f64 parity mode -> XLA
 
 
-def _mk_box():
-    layout = np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1]])
-    return planning.make_planning_env(
-        layout, 1, std_noise=0.0, num_cycles=8, v_max=1.0, a_max=8.0, dtype=jnp.float32,
-        collision_params={'shape': 'box', 'size': np.array([0.09, 0.08])},
-    )
+@pytest.mark.parametrize(
+    'backend, movers, expected',
+    [('gpu', 1, True), ('gpu', 2, False), ('cpu', 1, False)],
+)
+def test_use_kernel_chooses_by_platform_and_config(monkeypatch, backend, movers, expected):
+    """The one path chooser: the kernel only on a GPU and only for the
+    configurations it covers; ``batched_autoreset_step`` follows it."""
+    config, params = planning.make_planning_env(np.ones((3, 3)), movers, num_cycles=2, dtype=jnp.float32)
+    monkeypatch.setattr(jax, 'default_backend', lambda: backend)
+    assert pallas_step.use_kernel(config, params) is expected
+    if not expected:
+        assert pallas_step.batched_autoreset_step(planning, config, params).uses_kernel is False
 
 
-@pytest.mark.slow
-def test_fused_box_shape_matches_xla():
-    """Box collision shape in-kernel: rotated-vertex wall checks + corner
-    rect tests bit-match ``ops/walls`` at std=0 on a holed layout."""
-    config, params = _mk_box()
-    assert pallas_step.supports(config, params)
-    b = 128
-    # plant against the missing-tile wall: both the edge tests and the
-    # missing-corner rectangle tests fire within 2 steps
-    ys = np.linspace(0.30, 0.42, b)
-    plant = np.stack([np.full(b, 0.55), ys], axis=-1)[:, None, :]
-    keys = jax.random.split(jax.random.PRNGKey(31), b)
-    state, _, _ = jax.vmap(lambda k, s: planning.reset(config, params, k, start_xy=s))(
-        keys, jnp.asarray(plant, jnp.float32)
-    )
-    fused_step = planning.make_fused_step(config, params, interpret=True)
-    key = jax.random.PRNGKey(33)
-    hit_any = False
-    for t in range(2):
-        actions = jnp.tile(jnp.asarray([6.0, 2.0], jnp.float32), (b, 1))
-        xs, _, _, xt, _, xi = planning.batched_step(config, params, state, actions)
-        fs, _, _, ft, _, fi = fused_step(state, actions)
-        np.testing.assert_array_equal(np.asarray(fs.pos), np.asarray(xs.pos), err_msg=f't={t}')
-        np.testing.assert_array_equal(
-            np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']), err_msg=f't={t}'
-        )
-        hit_any = hit_any or bool(np.asarray(xi['wall_collision']).any())
-        state = xs
-    assert hit_any, 'no box wall collision ever fired'
-
-
-@pytest.mark.slow
-def test_fused_box_autoreset_restarts_box_valid():
-    """In-kernel box autoreset restarts at box-valid positions (small cand_k
-    keeps the interpret-mode box-validity unrolls cheap)."""
-    from gymnasium_planar_robotics_tpu.ops import walls
-    from gymnasium_planar_robotics_tpu.models.common import IDENTITY_QUAT
-
-    import dataclasses
-
-    config, params = _mk_box()
-    b = 128
-    key = jax.random.PRNGKey(33)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    state = _random_states(config, params, b, seed=35)
-    actions = jnp.zeros((b, 2), jnp.float32)
-    starts = []
-    for t in range(2):
-        state = dataclasses.replace(state, steps=jnp.full((b,), config.max_episode_steps - 1, jnp.int32))
-        key, kn = jax.random.split(key)
-        u = _uniforms(kn, step.noise_planes, b)
-        state, obs, rew, term, trunc, info = step(state, actions, noise=u)
-        fresh = (np.asarray(term) | np.asarray(trunc)) & ~np.asarray(info['reset_stalled'])
-        if fresh.any():
-            starts.append(np.asarray(state.pos)[fresh, 0])
-    starts = np.concatenate(starts)
-    assert len(starts) > 80
-    c_sample = np.asarray(params.c_size).reshape(1, 2) + float(params.c_offset) + float(params.c_offset_wall)
-    quat = jnp.tile(jnp.asarray([IDENTITY_QUAT], jnp.float32), (len(starts), 1))
-    valid = np.asarray(
-        walls.qpos_is_valid(
-            params.grid, jnp.asarray(starts), jnp.broadcast_to(c_sample, (len(starts), 2)),
-            quat=quat, collision_shape='box',
-        )
-    )
-    assert valid.all(), 'a box-shape reset restarted at a wall-invalid pose'
+@pytest.mark.parametrize('case', ['platform', 'config'])
+def test_kernel_refuses_what_it_cannot_run(case):
+    """Asking for the kernel off the GPU (without interpret mode), or for a
+    configuration it does not cover, is an error — never a silent fallback."""
+    if case == 'platform':
+        config, params = _mk()
+        with pytest.raises(RuntimeError, match='NVIDIA GPUs'):
+            planning.make_fused_step_autoreset(config, params)
+    else:
+        config, params = planning.make_planning_env(np.ones((4, 4)), 2, dtype=jnp.float32)
+        with pytest.raises(ValueError, match='one mover'):
+            planning.make_fused_step_autoreset(config, params, interpret=True)
 
 
 # ---------------------------------------------------------------------------
-# lane padding (batches that aren't a multiple of 128) + row blocking
-# ---------------------------------------------------------------------------
-
-
-def test_block_rows_non_divisor_pads_rows():
-    """rows=10 with block_rows=8 (the round-3 crash: B=1280 in the M-mover
-    kernel) must pad rows to 16 (Mosaic needs sublane-aligned blocks that
-    divide the array) and slice back, leaving real rows untouched."""
-
-    def kern(seed_ref, x_ref, o_ref):
-        o_ref[...] = x_ref[...] * 2.0
-
-    x = jnp.arange(10 * 128, dtype=jnp.float32).reshape(10, 128)
-    (out,) = pallas_step._pallas_planes(kern, [x], 1, True, 0, block_rows=8)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(x) * 2)
-
-
-@pytest.mark.parametrize('b', [200, 1000])
-def test_lane_padding_bitmatches_padded_size_run(b):
-    """A batch that is NOT a multiple of 128 runs the fused autoreset kernel
-    via internal lane padding, and its real lanes bit-match a genuine run at
-    the padded size whose tail lanes replicate env 0 (the wrapper's pad rule).
-    This is the round-3 VERDICT #3 'remove the 128 cliff' contract."""
-    import dataclasses
-
-    config, params = _mk(std=1e-5, num_cycles=8)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    bp = -(-b // 128) * 128  # next multiple of 128
-    state_p = _random_states(config, params, bp, seed=61)
-    state = jax.tree_util.tree_map(lambda x: x[:b], state_p)
-    # genuine padded-size state: tail lanes replicate env 0 (the pad rule)
-    state_p = jax.tree_util.tree_map(
-        lambda x: jnp.concatenate([x[:b], jnp.broadcast_to(x[:1], (bp - b,) + x.shape[1:])]), state_p
-    )
-    actions = jax.random.uniform(jax.random.PRNGKey(62), (bp, 2), jnp.float32, -8.0, 8.0)
-    actions_p = jnp.concatenate([actions[:b], jnp.broadcast_to(actions[:1], (bp - b, 2))])
-    u = _uniforms(jax.random.PRNGKey(63), step.noise_planes, b)
-    u_p = jnp.concatenate([u, jnp.broadcast_to(u[:, :1], (step.noise_planes, bp - b))], axis=1)
-
-    s, o, r, te, tr, info = step(state, actions[:b], noise=u)
-    sp, op, rp, tep, trp, infop = step(state_p, actions_p, noise=u_p)
-
-    assert s.pos.shape[0] == b and r.shape[0] == b
-    np.testing.assert_array_equal(np.asarray(s.pos), np.asarray(sp.pos)[:b])
-    np.testing.assert_array_equal(np.asarray(s.vel), np.asarray(sp.vel)[:b])
-    np.testing.assert_array_equal(np.asarray(s.steps), np.asarray(sp.steps)[:b])
-    np.testing.assert_array_equal(np.asarray(r), np.asarray(rp)[:b])
-    np.testing.assert_array_equal(np.asarray(te), np.asarray(tep)[:b])
-    np.testing.assert_array_equal(
-        np.asarray(o['observation']), np.asarray(op['observation'])[:b]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(info['wall_collision']), np.asarray(infop['wall_collision'])[:b]
-    )
-
-
-@pytest.mark.slow
-def test_lane_padding_multi_mover_matches_xla():
-    """M=2 at b=72 (needs padding) through the row-blocked M-mover kernel:
-    live lanes still bit-match the XLA step at std=0."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 2, std_noise=0.0, num_cycles=10, dtype=jnp.float32
-    )
-    b = 72
-    state, obs, _ = planning.init_batch(config, params, jax.random.PRNGKey(64), b)
-    actions = jax.random.uniform(jax.random.PRNGKey(65), (b, 4), jnp.float32, -8.0, 8.0)
-
-    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    u = _uniforms(jax.random.PRNGKey(66), step.noise_planes, b)
-    fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
-
-    live = ~np.asarray(xt)
-    np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live])
-    np.testing.assert_array_equal(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live])
-    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
-    np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
-    np.testing.assert_array_equal(np.asarray(fi['mover_collision']), np.asarray(xi['mover_collision']))
-
-
-@pytest.mark.parametrize('steps_per_launch', [1, 2])
-def test_fused_rollout_matches_per_step_path(steps_per_launch):
-    """Plane-form K-step rollout (round-3 VERDICT #5): at std=0 the scanned
-    plane-carry path must bit-match the per-step fused path on every env that
-    never restarted (restart draws use different PRNG streams by design).
-    ``steps_per_launch=2`` drives the IN-KERNEL step loop
-    (_planning_rollout_kernel) over a chunk of 2 plus a tail launch of 1."""
-    config, params = _mk(std=0.0, num_cycles=8)
-    roll = planning.make_fused_rollout(
-        config, params, interpret=True, cand_k=2, steps_per_launch=steps_per_launch
-    )
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    b, T = 128, 4
-    state = _random_states(config, params, b, seed=71)
-    acts = jax.random.uniform(jax.random.PRNGKey(72), (T, b, 2), jnp.float32, -0.5, 0.5)
-
-    fs, rew, te, tr = roll(state, acts, 7)
-    s2, done = state, np.zeros(b, bool)
-    rews, dones = [], []
-    for t in range(T):
-        u = _uniforms(jax.random.PRNGKey(100 + t), step.noise_planes, b)
-        s2, o2, r2, te2, tr2, i2 = step(s2, acts[t], noise=u)
-        rews.append(np.asarray(r2))
-        dones.append(done.copy())
-        done |= np.asarray(te2) | np.asarray(tr2)
-    live = ~done & ~(np.asarray(te) | np.asarray(tr)).any(0)
-    assert live.sum() > 60, f'too many restarts for the comparison: {live.sum()}'
-    np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(s2.pos)[live])
-    np.testing.assert_array_equal(np.asarray(fs.vel)[live], np.asarray(s2.vel)[live])
-    pre_mask = ~np.stack(dones) & live[None, :]
-    np.testing.assert_array_equal(np.asarray(rew)[pre_mask], np.stack(rews)[pre_mask])
-    assert rew.shape == (T, b) and te.shape == (T, b) and tr.shape == (T, b)
-
-
-def test_fused_rollout_multi_mover_matches_per_step_path():
-    """M=2 plane-form rollout over the row-blocked multi kernel: bit-match
-    on never-reset envs, shared-fate semantics intact."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 2, std_noise=0.0, num_cycles=8, dtype=jnp.float32
-    )
-    roll = planning.make_fused_rollout(config, params, interpret=True, cand_k=2)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    b, T = 128, 3
-    state, obs, _ = planning.init_batch(config, params, jax.random.PRNGKey(91), b)
-    acts = jax.random.uniform(jax.random.PRNGKey(92), (T, b, 4), jnp.float32, -0.5, 0.5)
-
-    fs, rew, te, tr = roll(state, acts, 9)
-    s2, done = state, np.zeros(b, bool)
-    for t in range(T):
-        u = _uniforms(jax.random.PRNGKey(300 + t), step.noise_planes, b)
-        s2, o2, r2, te2, tr2, i2 = step(s2, acts[t], noise=u)
-        done |= np.asarray(te2) | np.asarray(tr2)
-    live = ~done & ~np.asarray(te).any(0) & ~np.asarray(tr).any(0)
-    assert live.sum() > 60, live.sum()
-    np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(s2.pos)[live])
-    np.testing.assert_array_equal(np.asarray(fs.vel)[live], np.asarray(s2.vel)[live])
-    assert rew.shape == (T, b)
-
-
-@pytest.mark.parametrize('steps_per_launch', [1, 2])
-def test_fused_pushing_rollout_matches_per_step_path(steps_per_launch):
-    """Pushing plane-form rollout: at std=0 the scanned plane-carry path must
-    match the per-step fused path on every env that never restarted (same
-    contract as the planning rollout; contact-coupled values at FMA/ulp
-    tolerance).  ``steps_per_launch=2`` drives the in-kernel step loop
-    (_pushing_rollout_kernel) over a chunk of 2 plus a tail launch of 1."""
-    import dataclasses
-
-    from gymnasium_planar_robotics_tpu.models import pushing
-
-    config, params = _mk_push(std=0.0)
-    roll = pushing.make_fused_rollout(
-        config, params, interpret=True, cand_k=2, steps_per_launch=steps_per_launch
-    )
-    step = pushing.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    b, T = 128, 3
-    state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(81), b)
-    state = dataclasses.replace(
-        state,
-        pos=state.obj_pos + jnp.asarray([-0.115, 0.0], jnp.float32),
-        vel=jnp.tile(jnp.asarray([0.3, 0.0], jnp.float32), (b, 1)),
-    )
-    acts = jnp.tile(jnp.asarray([1.5, 0.2], jnp.float32), (T, b, 1))
-
-    fs, rew, te, tr = roll(state, acts, 7)
-    s2, done = state, np.zeros(b, bool)
-    for t in range(T):
-        u = _uniforms(jax.random.PRNGKey(200 + t), step.noise_planes, b)
-        s2, o2, r2, te2, tr2, i2 = step(s2, acts[t], noise=u)
-        done |= np.asarray(te2) | np.asarray(tr2)
-    live = ~done & ~np.asarray(te).any(0) & ~np.asarray(tr).any(0)
-    assert live.sum() > 100, f'too many restarts: {live.sum()}'
-    tol = dict(rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(s2.pos)[live], **tol)
-    np.testing.assert_allclose(np.asarray(fs.obj_pos)[live], np.asarray(s2.obj_pos)[live], **tol)
-    np.testing.assert_allclose(np.asarray(fs.mover_z)[live], np.asarray(s2.mover_z)[live], **tol)
-    # contact actually fired during the comparison
-    assert (np.abs(np.asarray(fs.obj_pos - state.obj_pos)[live]) > 1e-5).any()
-    assert rew.shape == (T, b)
-    assert set(np.unique(np.asarray(rew))) <= {0.0, -1.0, -50.0}
-
-
-# ---------------------------------------------------------------------------
-# noise machinery (injected-noise mode)
+# the counter-based generator
 # ---------------------------------------------------------------------------
 
 
 def test_box_muller_matches_numpy_oracle_and_moments():
-    """The kernels' Box-Muller, fed known uniforms, must reproduce the NumPy
-    float32 oracle value-for-value and have standard-normal moments."""
-    draws = 8
-    b = 4096
-    probe = pallas_step.make_noise_probe(draws=draws, interpret=True, inject_noise=True)
-    u = np.asarray(jax.random.uniform(jax.random.PRNGKey(0), (2 * draws, b), jnp.float32))
-    got = np.asarray(probe(0, noise=jnp.asarray(u)))  # [2*draws, b]
-
-    # NumPy float32 oracle of the exact kernel arithmetic
-    for d in range(draws):
-        u1 = (np.float32(1.0) - u[2 * d]).astype(np.float32)
-        u2 = u[2 * d + 1]
-        r = np.sqrt(np.float32(-2.0) * np.log(u1), dtype=np.float32)
-        exp_a = r * np.cos(np.float32(2 * np.pi) * u2, dtype=np.float32)
-        exp_b = r * np.sin(np.float32(2 * np.pi) * u2, dtype=np.float32)
-        np.testing.assert_allclose(got[2 * d], exp_a, rtol=2e-5, atol=2e-6)
-        np.testing.assert_allclose(got[2 * d + 1], exp_b, rtol=2e-5, atol=2e-6)
-
-    flat = got.reshape(-1)  # 65k samples
+    """The kernels' Box-Muller, fed the generator's uniforms, reproduces the
+    NumPy float32 oracle value for value, and the normals have
+    standard-normal moments and tails."""
+    keys = pallas_step.step_key(pallas_step.env_streams(3, jnp.arange(4096)), 0)
+    u1 = np.asarray(jax.vmap(lambda n: pallas_step.uniform(keys, n))(jnp.arange(0, 16, 2)))
+    u2 = np.asarray(jax.vmap(lambda n: pallas_step.uniform(keys, n))(jnp.arange(1, 16, 2)))
+    a, b = (np.asarray(x) for x in pallas_step.normal_pair(jnp.asarray(u1), jnp.asarray(u2)))
+    r = np.sqrt(np.float32(-2.0) * np.log((np.float32(1.0) - u1).astype(np.float32)), dtype=np.float32)
+    np.testing.assert_allclose(a, r * np.cos(np.float32(2 * np.pi) * u2, dtype=np.float32), rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(b, r * np.sin(np.float32(2 * np.pi) * u2, dtype=np.float32), rtol=2e-5, atol=2e-6)
+    flat = np.concatenate([a.ravel(), b.ravel()])  # 65k samples
     assert abs(flat.mean()) < 0.02
     assert abs(flat.std() - 1.0) < 0.02
-    # tails exist (PRNG-stuck-at-zero would give constants)
-    assert (np.abs(flat) > 2.0).mean() > 0.02
+    assert (np.abs(flat) > 2.0).mean() > 0.03
+    assert np.isfinite(flat).all()
 
 
-@pytest.mark.slow
-def test_fused_noise_flows_and_matches_xla_distribution():
-    """std>0 with injected uniforms: the fused path's collision rates and
-    speeds must match the XLA path distributionally — and must MOVE when the
-    noise does (guards against a silently-dead noise path, the round-1
-    vacuous-test failure mode)."""
-    config, params = _mk(std=3e-3)
-    b = 512
-    state = _random_states(config, params, b, seed=7)
-    fused_step = planning.make_fused_step(config, params, interpret=True, inject_noise=True)
-    actions = jnp.tile(jnp.asarray([6.0, 0.0], jnp.float32), (b, 1))  # drive at the wall
-
-    walls_x, walls_f, speed_x, speed_f = [], [], [], []
-    sx = sf = state
-    key = jax.random.PRNGKey(11)
-    zero_vel = None
-    for t in range(5):
-        key, kn = jax.random.split(key)
-        u = _uniforms(kn, fused_step.noise_planes, b)
-        sx2, _, _, _, _, ix = planning.batched_step(config, params, sx, actions)
-        sf2, _, _, _, _, iff = fused_step(sf, actions, noise=u)
-        if t == 0:
-            # same step with all-zero uniforms (Box-Muller gives r=0 => zero
-            # normals): the state must differ from the noisy run => noise
-            # actually flows through the kernel
-            sf_zero, *_ = fused_step(sf, actions, noise=jnp.zeros_like(u))
-            zero_vel = np.asarray(sf_zero.vel)
-        walls_x.append(np.asarray(ix['wall_collision']).mean())
-        walls_f.append(np.asarray(iff['wall_collision']).mean())
-        speed_x.append(np.linalg.norm(np.asarray(sx2.vel), axis=-1).mean())
-        speed_f.append(np.linalg.norm(np.asarray(sf2.vel), axis=-1).mean())
-        sx, sf = sx2, sf2
-    np.testing.assert_allclose(np.mean(speed_x), np.mean(speed_f), rtol=0.02)
-    np.testing.assert_allclose(np.mean(walls_x), np.mean(walls_f), atol=0.03)
-    # wall slams actually happened on both engines (the comparison is not 0 == 0)
-    assert np.mean(walls_x) > 0.01 and np.mean(walls_f) > 0.01
-    assert np.abs(np.asarray(sf.vel) - zero_vel).max() > 0  # noise reached the state
+@pytest.mark.parametrize('axis', ['env', 'step', 'draw'])
+def test_generator_moments_and_independence(axis):
+    """Uniforms along each key axis — global env index, step, draw — have
+    U[0, 1) moments, and neighbours along that axis (and the other axes) are
+    uncorrelated; the 24-bit values are distinct."""
+    n = 1 << 14
+    idx = jnp.arange(n)
+    if axis == 'env':
+        u = pallas_step.uniform(pallas_step.step_key(pallas_step.env_streams(7, idx), 5), 3)
+        other = pallas_step.uniform(pallas_step.step_key(pallas_step.env_streams(7, idx), 6), 3)
+    elif axis == 'step':
+        stream = pallas_step.env_streams(7, jnp.uint32(11))
+        u = pallas_step.uniform(pallas_step.step_key(stream, idx), 3)
+        other = pallas_step.uniform(pallas_step.step_key(stream, idx), 4)
+    else:
+        key = pallas_step.step_key(pallas_step.env_streams(7, jnp.uint32(11)), 5)
+        u = pallas_step.uniform(key, idx)
+        other = pallas_step.uniform(pallas_step.step_key(pallas_step.env_streams(8, jnp.uint32(11)), 5), idx)
+    u, other = np.asarray(u, np.float64), np.asarray(other, np.float64)
+    assert u.min() >= 0.0 and u.max() < 1.0
+    assert abs(u.mean() - 0.5) < 0.01
+    assert abs(u.var() - 1.0 / 12.0) < 0.005
+    assert len(np.unique(u)) > 0.99 * n
+    for lag in (1, 2, 32):
+        assert abs(np.corrcoef(u[:-lag], u[lag:])[0, 1]) < 0.03, f'lag {lag}'
+    assert abs(np.corrcoef(u, other)[0, 1]) < 0.03
+    # the two halves of the unit interval are equally likely along the axis
+    assert abs((u < 0.5).mean() - 0.5) < 0.02
 
 
-@pytest.mark.slow
-def test_injected_reset_sampling_wall_valid_and_uniform():
-    """In-kernel reset draws (planning, holed layout): every restart must be
-    wall-valid at the inflated sampling radius, and accepted draws must cover
-    the valid region uniformly."""
-    from gymnasium_planar_robotics_tpu.ops import walls
-
-    layout = np.array([[1, 1, 1], [1, 0, 1], [1, 1, 1]])
-    config, params = planning.make_planning_env(
-        layout, 1, std_noise=1e-5, num_cycles=10, dtype=jnp.float32,
-        collision_params={'shape': 'circle', 'size': 0.05, 'offset': 0.0, 'offset_wall': 0.0},
-    )
-    import dataclasses
-
-    b = 128
-    state = _random_states(config, params, b, seed=13)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=8)
-    actions = jnp.zeros((b, 2), jnp.float32)
-
-    c_sample = params.c_size + params.c_offset + params.c_offset_wall
-    starts, goals = [], []
-    key = jax.random.PRNGKey(17)
-    for t in range(2):
-        # pin the step counter at the limit: every env truncates and restarts
-        state = dataclasses.replace(
-            state, steps=jnp.full((b,), config.max_episode_steps - 1, jnp.int32)
-        )
-        key, kn = jax.random.split(key)
-        u = _uniforms(kn, step.noise_planes, b)
-        state, obs, rew, term, trunc, info = step(state, actions, noise=u)
-        done = np.asarray(term) | np.asarray(trunc)
-        assert done.all()
-        fresh = done & ~np.asarray(info['reset_stalled'])
-        if fresh.any():
-            starts.append(np.asarray(state.pos)[fresh, 0])
-            goals.append(np.asarray(state.goals)[fresh, 0])
-            # restarted trials reported
-            assert (np.asarray(info['reset_trials'])[fresh] >= 2).all()
-    starts = np.concatenate(starts)
-    goals = np.concatenate(goals)
-    assert len(starts) > 120, 'wall slams should restart most envs'
-
-    # exact oracle of the acceptance region: uniform draws filtered by the
-    # same (XLA) wall validity the sampler uses — first-accepted-of-K has the
-    # identical distribution to pure rejection sampling
-    rng = np.random.default_rng(0)
-    cand = rng.uniform(np.asarray(params.min_xy), np.asarray(params.max_xy), (20000, 2)).astype(np.float32)
-    ok = np.asarray(
-        walls.qpos_is_valid(params.grid, jnp.asarray(cand), jnp.broadcast_to(c_sample, (len(cand),)))
-    )
-    oracle = cand[ok]
-    cx = float(params.max_xy[0] + params.min_xy[0]) / 2
-    cy = float(params.max_xy[1] + params.min_xy[1]) / 2
-
-    def quadrants(pts):
-        return np.array([
-            ((pts[:, 0] < cx) & (pts[:, 1] < cy)).mean(),
-            ((pts[:, 0] < cx) & (pts[:, 1] >= cy)).mean(),
-            ((pts[:, 0] >= cx) & (pts[:, 1] < cy)).mean(),
-            ((pts[:, 0] >= cx) & (pts[:, 1] >= cy)).mean(),
-        ])
-
-    q_oracle = quadrants(oracle)
-    for pts in (starts, goals):
-        valid = np.asarray(
-            walls.qpos_is_valid(params.grid, jnp.asarray(pts), jnp.broadcast_to(c_sample, (len(pts),)))
-        )
-        assert valid.all(), 'an in-kernel reset restarted at a wall-invalid position'
-        q = quadrants(pts)
-        assert (np.abs(q - q_oracle) < 0.08).all(), f'reset draws diverge from the oracle: {q} vs {q_oracle}'
-        # the sampler covers the acceptance region's extremes too
-        assert pts[:, 0].min() < float(params.min_xy[0]) + 0.05
-        assert pts[:, 0].max() > float(params.max_xy[0]) - 0.05
+# ---------------------------------------------------------------------------
+# planning: kernel vs XLA at std=0
+# ---------------------------------------------------------------------------
 
 
-@pytest.mark.slow
-def test_reset_stall_reported_and_env_not_reset():
-    """Engineered all-invalid reset draws: the env must NOT restart (state
-    and step counter carry over), and info must flag the stall."""
-    layout = np.array([[1, 1, 1], [1, 0, 1], [1, 1, 1]])
-    config, params = planning.make_planning_env(
-        layout, 1, std_noise=1e-5, num_cycles=10, dtype=jnp.float32,
-    )
-    b = 128
-    # plant just left of the layout hole (invalid for the r=0.11 sampling
-    # circle once x > 0.13): the +x slam crosses within 1-3 short steps
-    xs_plant = np.linspace(0.1262, 0.1295, b)
-    plant = np.stack([xs_plant, np.full(b, 0.36)], axis=-1)[:, None, :]
-    keys0 = jax.random.split(jax.random.PRNGKey(19), b)
-    state, _, _ = jax.vmap(lambda k, s: planning.reset(config, params, k, start_xy=s))(
-        keys0, jnp.asarray(plant, jnp.float32)
-    )
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True)
-    actions = jnp.tile(jnp.asarray([8.0, 0.0], jnp.float32), (b, 1))
-
-    n_cycle = 4 * config.num_cycles
-    key = jax.random.PRNGKey(23)
-    stalled_seen = False
+def test_fused_matches_xla_multi_step_holed_layout():
+    layout = np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1]])
+    config, params = _mk(layout=layout)
+    b = 64
+    state = _random_states(config, params, b, seed=3)
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
+    key = jax.random.PRNGKey(5)
     for t in range(3):
-        key, kn = jax.random.split(key)
-        u = np.array(_uniforms(kn, step.noise_planes, b))
-        # overwrite every reset-sampling draw with 0.5 -> the layout hole's
-        # center -> wall-invalid for every candidate (obs planes stay random)
-        u[n_cycle + 4 : n_cycle + 4 + 4 * 16] = 0.5
-        prev_steps = np.asarray(state.steps)
-        prev_pos = np.asarray(state.pos)
-        state, obs, rew, term, trunc, info = step(state, actions, noise=jnp.asarray(u))
-        done = np.asarray(term) | np.asarray(trunc)
-        stalled = np.asarray(info['reset_stalled'])
-        if done.any():
-            stalled_seen = True
-            np.testing.assert_array_equal(stalled, done)  # every done env stalled
-            # not reset: counter advanced, trials exhausted, position is the
-            # physical post-cycle one (not the hole center)
-            assert (np.asarray(state.steps)[done] == prev_steps[done] + 1).all()
-            assert (np.asarray(info['reset_trials'])[done] == 32).all()
-            hole_center = (float(params.min_xy[0]) + float(params.max_xy[0])) / 2
-            assert not np.isclose(np.asarray(state.pos)[done, 0, 0], hole_center, atol=1e-3).any()
-        assert (~stalled[~done]).all()
-        del prev_pos
-    assert stalled_seen, 'wall slam never finished an episode'
-
-
-@pytest.mark.slow
-def test_injected_pushing_reset_respects_min_distance():
-    import dataclasses
-
-    from gymnasium_planar_robotics_tpu.models import pushing
-
-    config, params = pushing.make_pushing_env(std_noise=1e-5, num_cycles=10, dtype=jnp.float32)
-    b = 128
-    state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(29), b)
-    step = pushing.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True)
-    actions = jnp.zeros((b, 2), jnp.float32)
-    key = jax.random.PRNGKey(31)
-    movers, objs, goals = [], [], []
-    for t in range(4):
-        state = dataclasses.replace(
-            state, steps=jnp.full((b,), config.max_episode_steps - 1, jnp.int32)
+        key, k = jax.random.split(key)
+        actions = jax.random.uniform(k, (b, 2), jnp.float32, -8.0, 8.0)
+        xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
+        fs, _, fr, ft, _, fi = step(state, actions)
+        live = ~np.asarray(xt)
+        np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], err_msg=f't={t}')
+        np.testing.assert_array_equal(
+            np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']), err_msg=f't={t}'
         )
-        key, kn = jax.random.split(key)
-        u = _uniforms(kn, step.noise_planes, b)
-        state, obs, rew, term, trunc, info = step(state, actions, noise=u)
-        done = np.asarray(term) | np.asarray(trunc)
-        assert done.all()
-        fresh = done & ~np.asarray(info['reset_stalled'])
-        if fresh.any():
-            movers.append(np.asarray(state.pos)[fresh])
-            objs.append(np.asarray(state.obj_pos)[fresh])
-            goals.append(np.asarray(state.goal)[fresh])
-    movers, objs, goals = map(np.concatenate, (movers, objs, goals))
-    assert len(movers) > 100
-    # reference acceptance rule: object strictly farther than min_mo_dist
-    # from the freshly placed mover (benchmark_pushing_env.py:394-407)
-    d = np.linalg.norm(objs - movers, axis=-1)
-    assert (d > float(params.min_mo_dist) - 1e-6).all()
-    # mover uniform over [min_xy, max_xy]; object/goal over the inner box
-    for pts, lo, hi in ((movers, params.min_xy, params.max_xy),
-                        (objs, params.obj_min_xy, params.obj_max_xy),
-                        (goals, params.obj_min_xy, params.obj_max_xy)):
-        lo, hi = np.asarray(lo), np.asarray(hi)
-        assert (pts >= lo - 1e-5).all() and (pts <= hi + 1e-5).all()
-    # goals are unconstrained uniforms: mean near box center
-    center = (np.asarray(params.obj_min_xy) + np.asarray(params.obj_max_xy)) / 2
-    span = np.asarray(params.obj_max_xy) - np.asarray(params.obj_min_xy)
-    assert (np.abs(goals.mean(0) - center) < 0.15 * span).all()
-
-
-# ---------------------------------------------------------------------------
-# autoreset mechanics (injected noise; noise-independent invariants)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.slow
-def test_fused_autoreset_restarts_episodes():
-    config, params = _mk(std=1e-5, num_cycles=12)
-    b = 128
-    # plant near the +x wall so the slam terminates within a few short steps
-    # (keeps interpret-mode cost low; restart coverage is identical)
-    xs = np.linspace(0.55, 0.62, b)
-    plant = np.stack([xs, np.full(b, 0.36)], axis=-1)[:, None, :]
-    keys = jax.random.split(jax.random.PRNGKey(11), b)
-    state, _, _ = jax.vmap(lambda k, s: planning.reset(config, params, k, start_xy=s))(
-        keys, jnp.asarray(plant, jnp.float32)
-    )
-    step = planning.make_fused_step_autoreset(
-        config, params, interpret=True, inject_noise=True, cand_k=8
-    )
-    actions = jnp.tile(jnp.asarray([8.0, 0.0], jnp.float32), (b, 1))  # slam the wall
-    terminated_any = False
-    key = jax.random.PRNGKey(37)
-    for _ in range(4):
-        key, kn = jax.random.split(key)
-        state, obs, rew, term, trunc, info = step(state, actions, noise=_uniforms(kn, step.noise_planes, b))
-        terminated_any = terminated_any or bool(np.asarray(term).any())
-        done = (np.asarray(term) | np.asarray(trunc)) & ~np.asarray(info['reset_stalled'])
-        assert (np.asarray(state.steps)[done] == 0).all()
-        # restarted envs are inside the sampling region again
-        pos = np.asarray(state.pos)[done]
-        if pos.size:
-            assert (pos >= np.asarray(params.min_xy) - 1e-6).all()
-            assert (pos <= np.asarray(params.max_xy) + 1e-6).all()
-    assert terminated_any, 'wall slam never terminated an episode'
+        np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr), err_msg=f't={t}')
+        # advance along the XLA trajectory (the kernel restarts done envs)
+        state = xs
 
 
 @pytest.mark.parametrize('learn_jerk', [False, True])
 def test_fused_single_autoreset_matches_xla_zero_noise(learn_jerk):
     """1-mover in-kernel autoreset (acc AND jerk): cycle physics, collision
     flags, and rewards bit-match the XLA step on non-restarted lanes."""
-    config, params = _mk(std=0.0, learn_jerk=learn_jerk, num_cycles=12)
-    b = 128
+    config, params = _mk(learn_jerk=learn_jerk)
+    b = 64
     state = _random_states(config, params, b, seed=21)
     limit = 80.0 if learn_jerk else 8.0
     actions = jax.random.uniform(jax.random.PRNGKey(22), (b, 2), jnp.float32, -limit, limit)
 
     xs, xo, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    u = _uniforms(jax.random.PRNGKey(23), step.noise_planes, b)
-    fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
+    fs, fo, fr, ft, ftr, fi = step(state, actions)
 
     live = ~np.asarray(xt)
     np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live])
@@ -689,6 +233,10 @@ def test_fused_single_autoreset_matches_xla_zero_noise(learn_jerk):
     np.testing.assert_array_equal(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live])
     np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
     np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
+    np.testing.assert_array_equal(np.asarray(ft), np.asarray(xt))
+    np.testing.assert_array_equal(
+        np.asarray(fi['final_observation']['achieved_goal']), np.asarray(xo['achieved_goal'])
+    )
     if learn_jerk:
         np.testing.assert_array_equal(np.asarray(fs.act)[live], np.asarray(xs.act)[live])
         assert fo['observation'].shape == (b, 4)
@@ -707,42 +255,240 @@ def test_fused_dense_reward_matches_xla():
         np.ones((3, 3)), 1, std_noise=0.0, num_cycles=12, v_max=1.0, a_max=8.0,
         reward_mode='dense', dtype=jnp.float32,
     )
-    b = 128
+    b = 64
     state = _random_states(config, params, b, seed=25)
     actions = jax.random.uniform(jax.random.PRNGKey(26), (b, 2), jnp.float32, -8.0, 8.0)
 
     xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    u = _uniforms(jax.random.PRNGKey(27), step.noise_planes, b)
-    fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
+    fs, fo, fr, ft, ftr, fi = step(state, actions)
 
     np.testing.assert_allclose(np.asarray(fr), np.asarray(xr), rtol=1e-6, atol=1e-6)
     assert (np.asarray(xr) < 0).any(), 'dense rewards should be negative distances'
 
 
-# ---------------------------------------------------------------------------
-# pushing kernel
-# ---------------------------------------------------------------------------
-
-
-def _mk_push(std=0.0, learn_jerk=False, mover_params=None):
-    from gymnasium_planar_robotics_tpu.models import pushing
-
-    return pushing.make_pushing_env(
-        std_noise=std, learn_jerk=learn_jerk, dtype=jnp.float32, mover_params=mover_params
+def _scaled_params(params, scales):
+    return dataclasses.replace(
+        params, accel_scale=jnp.asarray(np.asarray(scales, np.float64), jnp.float32)
     )
 
 
 @pytest.mark.parametrize('learn_jerk', [False, True])
+def test_fused_accel_scale_matches_xla(learn_jerk):
+    """Bumpered mesh movers (qacc = accel_scale * command/act): the fused
+    step matches the XLA path at std=0 (reference bumper mass,
+    basic_envs.py:911-925)."""
+    config, params = _mk(learn_jerk=learn_jerk)
+    params = _scaled_params(params, [0.8125])  # exact in f32
+    assert pallas_step.supports(config, params)
+    b = 64
+    state = _random_states(config, params, b, seed=51)
+    limit = 80.0 if learn_jerk else 8.0
+    actions = jax.random.uniform(jax.random.PRNGKey(52), (b, 2), jnp.float32, -limit, limit)
+
+    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
+    fs, _, fr, ft, _, fi = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)(
+        state, actions
+    )
+
+    # ulp-level tolerance: the extra accel_scale multiply lets XLA contract
+    # FMAs differently in the two programs
+    live = ~np.asarray(xt)
+    tol = dict(rtol=2e-6, atol=2e-7)
+    np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live], **tol)
+    if learn_jerk:
+        np.testing.assert_allclose(np.asarray(fs.act)[live], np.asarray(xs.act)[live], **tol)
+        # the body accelerates slower than the integrator state
+        moving = np.abs(np.asarray(xs.act)) > 1e-6
+        assert (np.abs(np.asarray(xs.acc)[moving]) < np.abs(np.asarray(xs.act)[moving])).all()
+    np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
+
+
+def test_fused_autoreset_accel_scale_matches_xla():
+    """Single-mover in-kernel autoreset with accel_scale != 1: live-lane
+    physics and rewards match the XLA step."""
+    config, params = _mk()
+    params = _scaled_params(params, [0.75])
+    b = 64
+    state = _random_states(config, params, b, seed=53)
+    actions = jax.random.uniform(jax.random.PRNGKey(54), (b, 2), jnp.float32, -8.0, 8.0)
+
+    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
+    fs, fo, fr, ft, ftr, fi = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)(
+        state, actions
+    )
+
+    live = ~np.asarray(xt)
+    tol = dict(rtol=2e-6, atol=2e-7)
+    np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live], **tol)
+    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
+
+
+# ---------------------------------------------------------------------------
+# layout independence: batch tails, block size, launch splits
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('b', [200, 1000])
+def test_lane_padding_bitmatches_padded_size_run(b):
+    """A batch that the kernel's block does not divide runs through masked
+    tail loads and stores, and its envs bit-match the same envs inside a
+    larger batch (noise on: each env's stream comes from its own key)."""
+    config, params = _mk(std=1e-5, num_cycles=4)
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
+    bp = b + 56
+    state_p = _random_states(config, params, bp, seed=61)
+    state = jax.tree_util.tree_map(lambda x: x[:b], state_p)
+    actions = jax.random.uniform(jax.random.PRNGKey(62), (bp, 2), jnp.float32, -8.0, 8.0)
+
+    s, o, r, te, tr, info = step(state, actions[:b])
+    sp, op, rp, tep, trp, infop = step(state_p, actions)
+
+    assert s.pos.shape[0] == b and r.shape[0] == b
+    for x, y in [(s.pos, sp.pos), (s.vel, sp.vel), (s.goals, sp.goals), (s.steps, sp.steps), (r, rp),
+                 (te, tep), (o['observation'], op['observation']),
+                 (info['wall_collision'], infop['wall_collision'])]:
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y)[:b])
+
+
+def _planning_vec(state):
+    return planning._kernel_state(planning.PlanningConfig(num_movers=1), state)
+
+
+@pytest.mark.parametrize('b', [1, 33, 4097])
+def test_masked_tail_batches(b):
+    """Batches of 1, a block plus one, and 4096 plus one: every env of the
+    tail block is computed exactly as inside a full block."""
+    config, params = _mk(std=1e-5, num_cycles=2)
+    run = pallas_step.planning_kernel(config, params, 2, cand_k=2, interpret=True, block=128)
+    bp = -(-b // 128) * 128 + 128
+    state = _random_states(config, params, bp, seed=71)
+    acts = jax.random.uniform(jax.random.PRNGKey(72), (2, bp, 2), jnp.float32, -8.0, 8.0)
+    streams = pallas_step.env_streams(9, jnp.arange(bp))
+    full = jax.jit(run)(streams, 0, _planning_vec(state), (acts[..., 0], acts[..., 1]))
+    cut = jax.tree_util.tree_map(lambda x: x[..., :b], (streams, _planning_vec(state), acts[..., 0], acts[..., 1]))
+    part = jax.jit(run)(cut[0], 0, cut[1], (cut[2], cut[3]))
+    for x, y in zip(jax.tree_util.tree_leaves(part), jax.tree_util.tree_leaves(full)):
+        assert x.shape[-1] == b
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y)[..., :b])
+        assert np.isfinite(np.asarray(x)).all()
+
+
+@pytest.mark.parametrize('block', [32, 64, 128])
+def test_kernel_bitidentical_across_envs_per_program(block):
+    """The envs-per-program choice changes only the launch shape: results
+    are bit-identical to one env per program (pushing, noise on, restarts)."""
+    config, params = _mk_push(std=1e-5, num_cycles=4)
+    b = 200
+    state, _, _ = pushing.init_batch(config, params, jax.random.PRNGKey(81), b)
+    state = dataclasses.replace(state, steps=jnp.full((b,), config.max_episode_steps - 1, jnp.int32))
+    acts = jax.random.uniform(jax.random.PRNGKey(82), (2, b, 2), jnp.float32, -8.0, 8.0)
+    streams = pallas_step.env_streams(5, jnp.arange(b))
+    vec = pushing._kernel_state(state)
+    ref = pallas_step.pushing_kernel(config, params, 2, cand_k=2, interpret=True, block=1, num_warps=1)
+    got = pallas_step.pushing_kernel(config, params, 2, cand_k=2, interpret=True, block=block)
+    out_ref = jax.jit(ref)(streams, 0, vec, (acts[..., 0], acts[..., 1]))
+    out = jax.jit(got)(streams, 0, vec, (acts[..., 0], acts[..., 1]))
+    for x, y in zip(jax.tree_util.tree_leaves(out), jax.tree_util.tree_leaves(out_ref)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert (np.asarray(out[1][2])[0] > 0.5).all()  # every env truncated and restarted
+
+
+@pytest.mark.parametrize('steps_per_launch', [1, 2])
+def test_fused_rollout_matches_per_step_path(steps_per_launch):
+    """A 4-step rollout in ONE launch equals the same 4 steps split over
+    launches of ``steps_per_launch`` (the step index keys the noise), noise,
+    restarts and all — bit for bit."""
+    config, params = _mk(std=1e-5, num_cycles=4)
+    b, T = 64, 4
+    state = _random_states(config, params, b, seed=71)
+    state = dataclasses.replace(state, steps=jnp.full((b,), config.max_episode_steps - 2, jnp.int32))
+    acts = jax.random.uniform(jax.random.PRNGKey(72), (T, b, 2), jnp.float32, -8.0, 8.0)
+    fs, rew, te, tr = planning.make_fused_rollout(config, params, interpret=True, cand_k=2)(state, acts, 7)
+
+    streams = pallas_step.env_streams(7, jnp.arange(b))
+    run = pallas_step.planning_kernel(config, params, steps_per_launch, cand_k=2, interpret=True)
+    vec = _planning_vec(state)
+    rews = []
+    for t0 in range(0, T, steps_per_launch):
+        a = acts[t0:t0 + steps_per_launch]
+        vec, (r, _, _), _ = run(streams, t0, vec, (a[..., 0], a[..., 1]))
+        rews.append(np.asarray(r))
+    np.testing.assert_array_equal(np.asarray(rew), np.concatenate(rews))
+    np.testing.assert_array_equal(np.asarray(fs.pos)[:, 0, 0], np.asarray(vec['px']))
+    np.testing.assert_array_equal(np.asarray(fs.goals)[:, 0, 1], np.asarray(vec['gy']))
+    np.testing.assert_array_equal(np.asarray(fs.steps), np.asarray(vec['steps']).astype(np.int32))
+    assert np.asarray(tr).any(), 'no truncation restart inside the rollout'
+    assert rew.shape == (T, b) and te.shape == (T, b) and tr.shape == (T, b)
+
+
+@pytest.mark.parametrize('steps_per_launch', [1, 2])
+def test_fused_pushing_rollout_matches_per_step_path(steps_per_launch):
+    """Pushing: one launch of 4 steps vs launches of ``steps_per_launch``
+    steps — identical, with contact firing and restarts inside the window."""
+    config, params = _mk_push(std=1e-5, num_cycles=4)
+    b, T = 64, 4
+    state, _, _ = pushing.init_batch(config, params, jax.random.PRNGKey(81), b)
+    state = dataclasses.replace(
+        state,
+        pos=state.obj_pos + jnp.asarray([-0.115, 0.0], jnp.float32),
+        vel=jnp.tile(jnp.asarray([0.3, 0.0], jnp.float32), (b, 1)),
+        steps=jnp.full((b,), config.max_episode_steps - 2, jnp.int32),
+    )
+    acts = jnp.tile(jnp.asarray([1.5, 0.2], jnp.float32), (T, b, 1))
+    fs, rew, te, tr = pushing.make_fused_rollout(config, params, interpret=True, cand_k=2)(state, acts, 7)
+
+    streams = pallas_step.env_streams(7, jnp.arange(b))
+    run = pallas_step.pushing_kernel(config, params, steps_per_launch, cand_k=2, interpret=True)
+    vec = pushing._kernel_state(state)
+    rews = []
+    for t0 in range(0, T, steps_per_launch):
+        a = acts[t0:t0 + steps_per_launch]
+        vec, (r, _, _), _ = run(streams, t0, vec, (a[..., 0], a[..., 1]))
+        rews.append(np.asarray(r))
+    np.testing.assert_array_equal(np.asarray(rew), np.concatenate(rews))
+    np.testing.assert_array_equal(np.asarray(fs.obj_pos)[:, 0], np.asarray(vec['ox']))
+    np.testing.assert_array_equal(np.asarray(fs.mover_z), np.asarray(vec['mz']))
+    assert set(np.unique(np.asarray(rew))) <= {0.0, -1.0, -50.0}
+    assert np.asarray(tr).any()
+
+
+def test_rollout_lane_padding_any_batch():
+    """b=72 runs the one-launch rollout and equals the first 72 rows of a
+    128-env rollout with the same seed (noise is keyed by global env index)."""
+    config, params = _mk_push(std=1e-5, num_cycles=4)
+    T = 2
+    state128, _, _ = pushing.init_batch(config, params, jax.random.PRNGKey(2), 128)
+    state72 = jax.tree_util.tree_map(lambda x: x[:72], state128)
+    acts = jax.random.uniform(jax.random.PRNGKey(3), (T, 128, 2), jnp.float32, -3.0, 3.0)
+    rollout = pushing.make_fused_rollout(config, params, interpret=True)
+    f72, r72, t72, tr72 = jax.jit(lambda s, a: rollout(s, a, 11))(state72, acts[:, :72])
+    assert f72.pos.shape == (72, 2) and r72.shape == (T, 72)
+    f128, r128, _, _ = jax.jit(lambda s, a: rollout(s, a, 11))(state128, acts)
+    np.testing.assert_array_equal(np.asarray(f72.pos), np.asarray(f128.pos[:72]))
+    np.testing.assert_array_equal(np.asarray(f72.obj_pos), np.asarray(f128.obj_pos[:72]))
+    np.testing.assert_array_equal(np.asarray(r72), np.asarray(r128[:, :72]))
+
+
+# ---------------------------------------------------------------------------
+# pushing kernel vs XLA at std=0
+# ---------------------------------------------------------------------------
+
+
+def _fused_push_step(config, params, state, actions):
+    return pushing.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)(state, actions)
+
+
+@pytest.mark.parametrize('learn_jerk', [False, True])
 def test_fused_pushing_matches_xla_at_zero_noise(learn_jerk):
-    from gymnasium_planar_robotics_tpu.models import pushing
-
     config, params = _mk_push(std=0.0, learn_jerk=learn_jerk)
-    b = 128
+    b = 64
     state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(0), b)
-    # plant half the movers right next to the object so contact fires
-    import dataclasses
-
+    # plant the movers right next to the object so contact fires
     state = dataclasses.replace(
         state,
         pos=state.obj_pos + jnp.asarray([-0.115, 0.0], jnp.float32),
@@ -752,19 +498,20 @@ def test_fused_pushing_matches_xla_at_zero_noise(learn_jerk):
     actions = jax.random.uniform(jax.random.PRNGKey(1), (b, 2), jnp.float32, -limit, limit)
 
     xs, _, xr, xt, _, xi = pushing.batched_step(config, params, state, actions)
-    fused_step = pushing.make_fused_step(config, params, interpret=True)
-    fs, _, fr, ft, _, fi = fused_step(state, actions)
+    fs, _, fr, ft, _, fi = _fused_push_step(config, params, state, actions)
 
     # ulp-level tolerance: the two programs fuse multiplies differently (FMA
     # contraction), so contact-coupled quantities can differ in the last bit;
     # the z-overlap multiply (quasi-3D climb) adds one more rounding per cycle
+    live = ~np.asarray(xt)
     tol = dict(rtol=2e-6, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(fs.pos), np.asarray(xs.pos), **tol)
-    np.testing.assert_allclose(np.asarray(fs.vel), np.asarray(xs.vel), **tol)
-    np.testing.assert_allclose(np.asarray(fs.obj_pos), np.asarray(xs.obj_pos), **tol)
-    np.testing.assert_allclose(np.asarray(fs.obj_vel), np.asarray(xs.obj_vel), **tol)
-    np.testing.assert_allclose(np.asarray(fs.acc), np.asarray(xs.acc), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.obj_pos)[live], np.asarray(xs.obj_pos)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.obj_vel)[live], np.asarray(xs.obj_vel)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live], rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
+    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
     # object moved for at least some envs (contact actually exercised)
     assert (np.abs(np.asarray(fs.obj_pos - state.obj_pos)) > 1e-5).any()
 
@@ -773,12 +520,8 @@ def test_fused_pushing_diagonal_contact_matches_xla():
     """DIAGONAL (corner) contact at std=0: the hysteretic normal-axis carry
     must behave identically in the kernel and the XLA path over multiple
     steps of sustained corner pushing."""
-    import dataclasses
-
-    from gymnasium_planar_robotics_tpu.models import pushing
-
     config, params = _mk_push(std=0.0)
-    b = 128
+    b = 64
     state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(41), b)
     state = dataclasses.replace(
         state,
@@ -786,15 +529,16 @@ def test_fused_pushing_diagonal_contact_matches_xla():
         vel=jnp.tile(jnp.asarray([0.3, 0.28], jnp.float32), (b, 1)),
     )
     actions = jnp.tile(jnp.asarray([2.0, 1.9], jnp.float32), (b, 1))
-    fused_step = pushing.make_fused_step(config, params, interpret=True)
+    step = pushing.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
 
     tol = dict(rtol=2e-6, atol=2e-7)
     for t in range(3):
         xs, _, xr, xt, _, xi = pushing.batched_step(config, params, state, actions)
-        fs, _, fr, ft, _, fi = fused_step(state, actions)
-        np.testing.assert_allclose(np.asarray(fs.obj_pos), np.asarray(xs.obj_pos), **tol)
-        np.testing.assert_allclose(np.asarray(fs.obj_yaw), np.asarray(xs.obj_yaw), rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(fs.pos), np.asarray(xs.pos), **tol)
+        fs, _, fr, ft, _, fi = step(state, actions)
+        live = ~np.asarray(xt)
+        np.testing.assert_allclose(np.asarray(fs.obj_pos)[live], np.asarray(xs.obj_pos)[live], **tol)
+        np.testing.assert_allclose(np.asarray(fs.obj_yaw)[live], np.asarray(xs.obj_yaw)[live], rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
         state = xs
     assert (np.abs(np.asarray(state.obj_pos - state.pos)) > 0.05).any()
 
@@ -802,11 +546,7 @@ def test_fused_pushing_diagonal_contact_matches_xla():
 def test_fused_pushing_cone_share_matches_xla():
     """Elliptic-cone budget share ENGAGED (cone_zeta > 0, diagonal slip):
     the kernel's f_z / lateral-cap / floor-load math must track the XLA
-    path through a sustained corner push — the round-4 corner-escape fix."""
-    import dataclasses
-
-    from gymnasium_planar_robotics_tpu.models import pushing
-
+    path through a sustained corner push — the corner-escape fix."""
     config, params = _mk_push(std=0.0)
     params = dataclasses.replace(
         params,
@@ -814,7 +554,7 @@ def test_fused_pushing_cone_share_matches_xla():
         cone_vt=jnp.asarray(0.25, jnp.float32),
         cone_plow=jnp.asarray(1.0, jnp.float32),
     )
-    b = 128
+    b = 64
     state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(43), b)
     state = dataclasses.replace(
         state,
@@ -822,7 +562,7 @@ def test_fused_pushing_cone_share_matches_xla():
         vel=jnp.tile(jnp.asarray([0.35, 0.33], jnp.float32), (b, 1)),
     )
     actions = jnp.tile(jnp.asarray([4.0, 3.7], jnp.float32), (b, 1))
-    fused_step = pushing.make_fused_step(config, params, interpret=True)
+    step = pushing.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
 
     tol = dict(rtol=3e-5, atol=3e-6)  # extra sqrt/div in the cap: a few ulp more
     # the lateral-pinned object sits AT the Coulomb stick/slip boundary, where
@@ -832,10 +572,11 @@ def test_fused_pushing_cone_share_matches_xla():
     moved_lat = False
     for t in range(3):
         xs, _, xr, xt, _, xi = pushing.batched_step(config, params, state, actions)
-        fs, _, fr, ft, _, fi = fused_step(state, actions)
-        np.testing.assert_allclose(np.asarray(fs.obj_pos), np.asarray(xs.obj_pos), **tol)
-        np.testing.assert_allclose(np.asarray(fs.obj_vel), np.asarray(xs.obj_vel), **vel_tol)
-        np.testing.assert_allclose(np.asarray(fs.pos), np.asarray(xs.pos), **tol)
+        fs, _, fr, ft, _, fi = step(state, actions)
+        live = ~np.asarray(xt)
+        np.testing.assert_allclose(np.asarray(fs.obj_pos)[live], np.asarray(xs.obj_pos)[live], **tol)
+        np.testing.assert_allclose(np.asarray(fs.obj_vel)[live], np.asarray(xs.obj_vel)[live], **vel_tol)
+        np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
         moved_lat = moved_lat or bool((np.abs(np.asarray(xs.obj_pos - state.obj_pos)) > 1e-5).any())
         state = xs
     assert moved_lat, 'corner push never moved the object'
@@ -848,19 +589,15 @@ def test_fused_pushing_cone_share_matches_xla():
 
 @pytest.mark.parametrize('learn_jerk', [False, True])
 def test_fused_pushing_mesh_bumper_matches_xla(learn_jerk):
-    """Bumpered mesh mover in the PUSHING kernel (round-2 VERDICT item #2):
-    accel_scale on the command, total body mass under the contact reaction —
-    the fused kernel must track the XLA path through contact."""
-    import dataclasses
-
-    from gymnasium_planar_robotics_tpu.models import pushing
-
+    """Bumpered mesh mover in the pushing kernel: accel_scale on the
+    command, total body mass under the contact reaction — the fused kernel
+    must track the XLA path through contact."""
     config, params = _mk_push(
         std=0.0, learn_jerk=learn_jerk,
         mover_params={'shape': 'mesh', 'mesh': {'bumper_mass': 0.35}},
     )
     assert float(params.accel_scale) < 1.0 and float(params.total_mass) > float(params.mover_mass)
-    b = 128
+    b = 64
     state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(0), b)
     state = dataclasses.replace(
         state,
@@ -871,417 +608,321 @@ def test_fused_pushing_mesh_bumper_matches_xla(learn_jerk):
     actions = jax.random.uniform(jax.random.PRNGKey(1), (b, 2), jnp.float32, -limit, limit)
 
     xs, _, xr, xt, _, xi = pushing.batched_step(config, params, state, actions)
-    fused_step = pushing.make_fused_step(config, params, interpret=True)
-    fs, _, fr, ft, _, fi = fused_step(state, actions)
+    fs, _, fr, ft, _, fi = _fused_push_step(config, params, state, actions)
 
+    live = ~np.asarray(xt)
     tol = dict(rtol=2e-6, atol=2e-7)
-    np.testing.assert_allclose(np.asarray(fs.pos), np.asarray(xs.pos), **tol)
-    np.testing.assert_allclose(np.asarray(fs.vel), np.asarray(xs.vel), **tol)
-    np.testing.assert_allclose(np.asarray(fs.obj_pos), np.asarray(xs.obj_pos), **tol)
-    np.testing.assert_allclose(np.asarray(fs.acc), np.asarray(xs.acc), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.obj_pos)[live], np.asarray(xs.obj_pos)[live], **tol)
+    np.testing.assert_allclose(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live], rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
     assert (np.abs(np.asarray(fs.obj_pos - state.obj_pos)) > 1e-5).any(), 'contact never fired'
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_interpret_mode(gpu_device):
+    """On the card: the compiled Triton kernel equals its interpret-mode run
+    at std=0 within FMA tolerance, flags and rewards exactly."""
+    config, params = _mk_push(std=0.0)
+    b = 1000
+    state, _, _ = pushing.init_batch(config, params, jax.random.PRNGKey(0), b)
+    acts = jax.random.uniform(jax.random.PRNGKey(1), (3, b, 2), jnp.float32, -8.0, 8.0)
+    streams = pallas_step.env_streams(1, jnp.arange(b))
+    vec = pushing._kernel_state(state)
+    args = (streams, 0, vec, (acts[..., 0], acts[..., 1]))
+    with jax.default_device(jax.devices('cpu')[0]):
+        ref = pallas_step.pushing_kernel(config, params, 3, interpret=True)(*jax.device_put(args, jax.devices('cpu')[0]))
+    got = pallas_step.pushing_kernel(config, params, 3)(*jax.device_put(args, gpu_device))
+    np.testing.assert_array_equal(np.asarray(got[1][0]), np.asarray(ref[1][0]))
+    np.testing.assert_allclose(np.asarray(got[0]['ox']), np.asarray(ref[0]['ox']), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# long-running: 40 cycles, box shapes, noise and reset distributions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize('learn_jerk', [False, True])
+def test_fused_matches_xla_at_zero_noise(learn_jerk):
+    config, params = _mk(learn_jerk=learn_jerk, num_cycles=40)
+    b = 128
+    state = _random_states(config, params, b)
+    limit = 80.0 if learn_jerk else 8.0
+    actions = jax.random.uniform(jax.random.PRNGKey(1), (b, 2), jnp.float32, -limit, limit)
+    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
+    fs, _, fr, ft, _, fi = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)(
+        state, actions
+    )
+    live = ~np.asarray(xt)
+    np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live])
+    np.testing.assert_array_equal(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live])
+    np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
+    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
+
+
+def _mk_box():
+    layout = np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1]])
+    return planning.make_planning_env(
+        layout, 1, std_noise=0.0, num_cycles=8, v_max=1.0, a_max=8.0, dtype=jnp.float32,
+        collision_params={'shape': 'box', 'size': np.array([0.09, 0.08])},
+    )
+
+
+@pytest.mark.slow
+def test_fused_box_shape_matches_xla():
+    """Box collision shape in-kernel: rotated-vertex wall checks + corner
+    rect tests match ``ops/walls`` at std=0 on a holed layout."""
+    config, params = _mk_box()
+    b = 128
+    # plant against the missing-tile wall: both the edge tests and the
+    # missing-corner rectangle tests fire within 2 steps
+    ys = np.linspace(0.30, 0.42, b)
+    plant = np.stack([np.full(b, 0.55), ys], axis=-1)[:, None, :]
+    keys = jax.random.split(jax.random.PRNGKey(31), b)
+    state, _, _ = jax.vmap(lambda k, s: planning.reset(config, params, k, start_xy=s))(
+        keys, jnp.asarray(plant, jnp.float32)
+    )
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
+    hit_any = False
+    for t in range(2):
+        actions = jnp.tile(jnp.asarray([6.0, 2.0], jnp.float32), (b, 1))
+        xs, _, _, xt, _, xi = planning.batched_step(config, params, state, actions)
+        fs, _, _, ft, _, fi = step(state, actions)
+        live = ~np.asarray(xt)
+        np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], err_msg=f't={t}')
+        np.testing.assert_array_equal(
+            np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']), err_msg=f't={t}'
+        )
+        hit_any = hit_any or bool(np.asarray(xi['wall_collision']).any())
+        state = xs
+    assert hit_any, 'no box wall collision ever fired'
+
+
+def _restart_all(state, config):
+    return dataclasses.replace(state, steps=jnp.full(state.steps.shape, config.max_episode_steps - 1, jnp.int32))
+
+
+@pytest.mark.slow
+def test_fused_box_autoreset_restarts_box_valid():
+    """In-kernel box autoreset restarts at box-valid positions."""
+    from gymnasium_planar_robotics_tpu.models.common import IDENTITY_QUAT
+    from gymnasium_planar_robotics_tpu.ops import walls
+
+    config, params = _mk_box()
+    b = 128
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=4)
+    state = _random_states(config, params, b, seed=35)
+    actions = jnp.zeros((b, 2), jnp.float32)
+    starts = []
+    for t in range(2):
+        state, obs, rew, term, trunc, info = step(_restart_all(state, config), actions)
+        fresh = (np.asarray(term) | np.asarray(trunc)) & ~np.asarray(info['reset_stalled'])
+        starts.append(np.asarray(state.pos)[fresh, 0])
+    starts = np.concatenate(starts)
+    assert len(starts) > 200
+    c_sample = np.asarray(params.c_size).reshape(1, 2) + float(params.c_offset) + float(params.c_offset_wall)
+    quat = jnp.tile(jnp.asarray([IDENTITY_QUAT], jnp.float32), (len(starts), 1))
+    valid = np.asarray(
+        walls.qpos_is_valid(
+            params.grid, jnp.asarray(starts), jnp.broadcast_to(c_sample, (len(starts), 2)),
+            quat=quat, collision_shape='box',
+        )
+    )
+    assert valid.all(), 'a box-shape reset restarted at a wall-invalid pose'
+
+
+@pytest.mark.slow
+def test_fused_noise_flows_and_matches_xla_distribution():
+    """std>0: the fused path's collision rates and speeds match the XLA path
+    distributionally — and MOVE when the noise does (guards against a
+    silently dead noise path)."""
+    config, params = _mk(std=3e-3, num_cycles=40)
+    config0, params0 = _mk(std=0.0, num_cycles=40)
+    b = 512
+    state = _random_states(config, params, b, seed=7)
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=2)
+    step0 = planning.make_fused_step_autoreset(config0, params0, interpret=True, cand_k=2)
+    actions = jnp.tile(jnp.asarray([6.0, 0.0], jnp.float32), (b, 1))  # drive at the wall
+
+    walls_x, walls_f, speed_x, speed_f = [], [], [], []
+    sx = sf = state
+    for t in range(5):
+        sx2, _, _, _, _, ix = planning.batched_step(config, params, sx, actions)
+        sf2, _, _, xt, _, iff = step(sf, actions)
+        if t == 0:
+            zero_vel = np.asarray(step0(sf, actions)[0].vel)
+        walls_x.append(np.asarray(ix['wall_collision']).mean())
+        walls_f.append(np.asarray(iff['wall_collision']).mean())
+        speed_x.append(np.linalg.norm(np.asarray(sx2.vel), axis=-1).mean())
+        speed_f.append(np.linalg.norm(np.asarray(iff['final_observation']['observation']), axis=-1).mean())
+        sx, sf = sx2, sf2
+    np.testing.assert_allclose(np.mean(speed_x), np.mean(speed_f), rtol=0.05)
+    np.testing.assert_allclose(np.mean(walls_x), np.mean(walls_f), atol=0.03)
+    assert np.mean(walls_x) > 0.01 and np.mean(walls_f) > 0.01
+    assert np.abs(np.asarray(step(state, actions)[0].vel) - zero_vel).max() > 0  # noise reached the state
+
+
+@pytest.mark.slow
+def test_reset_sampling_wall_valid_and_uniform():
+    """In-kernel reset draws (planning, holed layout): every restart is
+    wall-valid at the inflated sampling radius, and accepted draws cover the
+    valid region uniformly."""
+    from gymnasium_planar_robotics_tpu.ops import walls
+
+    layout = np.array([[1, 1, 1], [1, 0, 1], [1, 1, 1]])
+    config, params = planning.make_planning_env(
+        layout, 1, std_noise=1e-5, num_cycles=10, dtype=jnp.float32,
+        collision_params={'shape': 'circle', 'size': 0.05, 'offset': 0.0, 'offset_wall': 0.0},
+    )
+    b = 1024
+    state = _random_states(config, params, b, seed=13)
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=8)
+    actions = jnp.zeros((b, 2), jnp.float32)
+    c_sample = params.c_size + params.c_offset + params.c_offset_wall
+    starts, goals = [], []
+    for t in range(2):
+        state, obs, rew, term, trunc, info = step(_restart_all(state, config), actions)
+        done = np.asarray(term) | np.asarray(trunc)
+        assert done.all()
+        fresh = done & ~np.asarray(info['reset_stalled'])
+        starts.append(np.asarray(state.pos)[fresh, 0])
+        goals.append(np.asarray(state.goals)[fresh, 0])
+        assert (np.asarray(info['reset_trials'])[fresh] >= 2).all()
+    starts, goals = np.concatenate(starts), np.concatenate(goals)
+    assert len(starts) > 1900
+
+    rng = np.random.default_rng(0)
+    cand = rng.uniform(np.asarray(params.min_xy), np.asarray(params.max_xy), (20000, 2)).astype(np.float32)
+    ok = np.asarray(walls.qpos_is_valid(params.grid, jnp.asarray(cand), jnp.broadcast_to(c_sample, (len(cand),))))
+    oracle = cand[ok]
+    cx = float(params.max_xy[0] + params.min_xy[0]) / 2
+    cy = float(params.max_xy[1] + params.min_xy[1]) / 2
+
+    def quadrants(pts):
+        return np.array([
+            ((pts[:, 0] < cx) & (pts[:, 1] < cy)).mean(), ((pts[:, 0] < cx) & (pts[:, 1] >= cy)).mean(),
+            ((pts[:, 0] >= cx) & (pts[:, 1] < cy)).mean(), ((pts[:, 0] >= cx) & (pts[:, 1] >= cy)).mean(),
+        ])
+
+    for pts in (starts, goals):
+        valid = np.asarray(walls.qpos_is_valid(params.grid, jnp.asarray(pts), jnp.broadcast_to(c_sample, (len(pts),))))
+        assert valid.all(), 'an in-kernel reset restarted at a wall-invalid position'
+        assert (np.abs(quadrants(pts) - quadrants(oracle)) < 0.05).all()
+        assert pts[:, 0].min() < float(params.min_xy[0]) + 0.05
+        assert pts[:, 0].max() > float(params.max_xy[0]) - 0.05
+
+
+@pytest.mark.slow
+def test_reset_stall_reported_and_env_not_reset():
+    """A sampling region that lies inside the layout's hole: every candidate
+    is wall-invalid, so done envs must NOT restart (state and step counter
+    carry over) and info must flag the stall."""
+    layout = np.array([[1, 1, 1], [1, 0, 1], [1, 1, 1]])
+    config, params = planning.make_planning_env(layout, 1, std_noise=1e-5, num_cycles=4, dtype=jnp.float32)
+    b = 128
+    state = _random_states(config, params, b, seed=19)
+    hole = np.asarray(params.grid.tile_x)[1, 1], np.asarray(params.grid.tile_y)[1, 1]
+    params = dataclasses.replace(
+        params,
+        min_xy=jnp.asarray([hole[0] - 0.01, hole[1] - 0.01], jnp.float32),
+        max_xy=jnp.asarray([hole[0] + 0.01, hole[1] + 0.01], jnp.float32),
+    )
+    step = planning.make_fused_step_autoreset(config, params, interpret=True)
+    prev = _restart_all(state, config)
+    state, obs, rew, term, trunc, info = step(prev, jnp.zeros((b, 2), jnp.float32))
+    done = np.asarray(term) | np.asarray(trunc)
+    assert done.all()
+    np.testing.assert_array_equal(np.asarray(info['reset_stalled']), done)
+    assert (np.asarray(state.steps) == config.max_episode_steps).all()
+    assert (np.asarray(info['reset_trials']) == 32).all()
+    np.testing.assert_array_equal(np.asarray(state.goals), np.asarray(prev.goals))
+
+
+@pytest.mark.slow
+def test_pushing_reset_respects_min_distance():
+    config, params = pushing.make_pushing_env(std_noise=1e-5, num_cycles=10, dtype=jnp.float32)
+    b = 512
+    state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(29), b)
+    step = pushing.make_fused_step_autoreset(config, params, interpret=True)
+    actions = jnp.zeros((b, 2), jnp.float32)
+    movers, objs, goals = [], [], []
+    for t in range(2):
+        state, obs, rew, term, trunc, info = step(_restart_all(state, config), actions)
+        done = np.asarray(term) | np.asarray(trunc)
+        assert done.all()
+        fresh = done & ~np.asarray(info['reset_stalled'])
+        movers.append(np.asarray(state.pos)[fresh])
+        objs.append(np.asarray(state.obj_pos)[fresh])
+        goals.append(np.asarray(state.goal)[fresh])
+    movers, objs, goals = map(np.concatenate, (movers, objs, goals))
+    assert len(movers) > 900
+    # reference acceptance rule: object strictly farther than min_mo_dist
+    # from the freshly placed mover (benchmark_pushing_env.py:394-407)
+    d = np.linalg.norm(objs - movers, axis=-1)
+    assert (d > float(params.min_mo_dist) - 1e-6).all()
+    for pts, lo, hi in ((movers, params.min_xy, params.max_xy),
+                        (objs, params.obj_min_xy, params.obj_max_xy),
+                        (goals, params.obj_min_xy, params.obj_max_xy)):
+        lo, hi = np.asarray(lo), np.asarray(hi)
+        assert (pts >= lo - 1e-5).all() and (pts <= hi + 1e-5).all()
+    center = (np.asarray(params.obj_min_xy) + np.asarray(params.obj_max_xy)) / 2
+    span = np.asarray(params.obj_max_xy) - np.asarray(params.obj_min_xy)
+    assert (np.abs(goals.mean(0) - center) < 0.1 * span).all()
+
+
+@pytest.mark.slow
+def test_fused_autoreset_restarts_episodes():
+    config, params = _mk(std=1e-5)
+    b = 128
+    # plant near the +x wall so the slam terminates within a few short steps
+    xs = np.linspace(0.55, 0.62, b)
+    plant = np.stack([xs, np.full(b, 0.36)], axis=-1)[:, None, :]
+    keys = jax.random.split(jax.random.PRNGKey(11), b)
+    state, _, _ = jax.vmap(lambda k, s: planning.reset(config, params, k, start_xy=s))(
+        keys, jnp.asarray(plant, jnp.float32)
+    )
+    step = planning.make_fused_step_autoreset(config, params, interpret=True, cand_k=8)
+    actions = jnp.tile(jnp.asarray([8.0, 0.0], jnp.float32), (b, 1))  # slam the wall
+    terminated_any = False
+    for _ in range(4):
+        state, obs, rew, term, trunc, info = step(state, actions)
+        terminated_any = terminated_any or bool(np.asarray(term).any())
+        done = (np.asarray(term) | np.asarray(trunc)) & ~np.asarray(info['reset_stalled'])
+        assert (np.asarray(state.steps)[done] == 0).all()
+        pos = np.asarray(state.pos)[done]
+        if pos.size:
+            assert (pos >= np.asarray(params.min_xy) - 1e-6).all()
+            assert (pos <= np.asarray(params.max_xy) + 1e-6).all()
+    assert terminated_any, 'wall slam never terminated an episode'
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize('learn_jerk', [False, True])
 def test_fused_pushing_inkernel_autoreset_semantics(learn_jerk):
-    """In-kernel reset (acc AND jerk modes) with injected noise: step
-    counters, goal switching, final-obs bookkeeping, reward values."""
-    from gymnasium_planar_robotics_tpu.models import pushing
-
+    """In-kernel reset (acc AND jerk modes): step counters, goal switching,
+    final-obs bookkeeping, reward values."""
     config, params = _mk_push(std=0.0, learn_jerk=learn_jerk)
     b = 128
     state, obs, _ = pushing.init_batch(config, params, jax.random.PRNGKey(3), b)
-    step = pushing.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True)
+    step = pushing.make_fused_step_autoreset(config, params, interpret=True)
     drive = 70.0 if learn_jerk else 9.0
     actions = jnp.tile(jnp.asarray([drive, 0.0], jnp.float32), (b, 1))
-    assert_obs_dim = 6 if learn_jerk else 4
     resets = 0
-    key = jax.random.PRNGKey(41)
     for t in range(6):
-        key, kn = jax.random.split(key)
         prev_goal = np.asarray(state.goal)
-        state, obs, rew, term, trunc, info = step(state, actions, noise=_uniforms(kn, step.noise_planes, b))
-        assert obs['observation'].shape == (b, assert_obs_dim)
+        state, obs, rew, term, trunc, info = step(state, actions)
+        assert obs['observation'].shape == (b, 6 if learn_jerk else 4)
         done = (np.asarray(term) | np.asarray(trunc)) & ~np.asarray(info['reset_stalled'])
         resets += int(done.sum())
         keep = ~done
         assert (np.asarray(state.steps)[done] == 0).all()
         assert (np.abs(np.asarray(state.vel)[done]) < 1e-6).all()
         # final_observation keeps the OLD goal; out obs carries the new state goal
-        np.testing.assert_allclose(
-            np.asarray(info['final_observation']['desired_goal']), prev_goal, atol=1e-6
-        )
+        np.testing.assert_allclose(np.asarray(info['final_observation']['desired_goal']), prev_goal, atol=1e-6)
         np.testing.assert_allclose(np.asarray(obs['desired_goal']), np.asarray(state.goal), atol=1e-6)
-        # non-done envs keep their goal and advance their counter
         np.testing.assert_allclose(np.asarray(state.goal)[keep], prev_goal[keep], atol=1e-6)
-        # rewards: wall envs -50, others 0/-1
         assert set(np.unique(np.asarray(rew))) <= {0.0, -1.0, -50.0}
         assert (np.asarray(rew)[np.asarray(term)] == -50.0).all()
     assert resets > 0, 'no episode ever restarted'
-
-
-def _planted_multi_state(config, params, b, starts, seed=5):
-    """Batched state with every env's movers planted at ``starts`` [M, 2]."""
-    keys = jax.random.split(jax.random.PRNGKey(seed), b)
-    state, _, _ = jax.vmap(
-        lambda k: planning.reset(config, params, k, start_xy=jnp.asarray(starts, jnp.float32))
-    )(keys)
-    return state
-
-
-@pytest.mark.slow
-def test_fused_multi_mover_autoreset_mechanics():
-    """M=3 in-kernel autoreset with injected noise: collisions, counters,
-    goal bookkeeping, reward values.  Movers planted close so head-on
-    actions collide within a few short steps (keeps interpret time low)."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 3, std_noise=0.0, num_cycles=6, dtype=jnp.float32
-    )
-    b = 128
-    starts = np.array([[0.5, 0.5], [0.82, 0.5], [0.5, 0.95]])
-    state = _planted_multi_state(config, params, b, starts)
-    step = planning.make_fused_step_autoreset(
-        config, params, interpret=True, inject_noise=True, cand_k=2
-    )
-    # drive movers 0 and 1 into each other
-    actions = jnp.tile(jnp.asarray([[6.0, 0.0], [-6.0, 0.0], [0.0, 2.0]], jnp.float32), (b, 1, 1))
-    collided_any = False
-    key = jax.random.PRNGKey(43)
-    for t in range(3):
-        key, kn = jax.random.split(key)
-        prev_goal = np.asarray(state.goals)
-        state, o, r, te, tr, info = step(
-            state, actions.reshape(b, -1), noise=_uniforms(kn, step.noise_planes, b)
-        )
-        done = (np.asarray(te) | np.asarray(tr)) & ~np.asarray(info['reset_stalled'])
-        collided_any = collided_any or bool(
-            (np.asarray(info['mover_collision']) | np.asarray(info['wall_collision'])).any()
-        )
-        assert (np.asarray(state.steps)[done] == 0).all()
-        keep = ~(np.asarray(te) | np.asarray(tr))
-        np.testing.assert_allclose(np.asarray(state.goals)[keep], prev_goal[keep], atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(info['final_observation']['desired_goal']), prev_goal.reshape(b, -1), atol=1e-6
-        )
-        rw = np.asarray(r)
-        assert ((rw == 50.0) | (rw == -50.0) | ((rw <= 0) & (rw >= -3))).all()
-        # collision => -50 and terminated
-        col = np.asarray(info['mover_collision']) | np.asarray(info['wall_collision'])
-        assert (rw[col] == -50.0).all()
-        assert np.asarray(te)[col].all()
-    assert collided_any, 'head-on movers never collided'
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize('learn_jerk', [False, True])
-def test_fused_multi_matches_xla_single_step_zero_noise(learn_jerk):
-    """M=2, std=0: kernel cycle physics must match the XLA step bit-exactly
-    (state only; obs/reset streams differ) — both actuation modes."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 2, std_noise=0.0, num_cycles=12, learn_jerk=learn_jerk, dtype=jnp.float32
-    )
-    b = 128
-    state, obs, _ = planning.init_batch(config, params, jax.random.PRNGKey(9), b)
-    limit = 100.0 if learn_jerk else 8.0
-    actions = jax.random.uniform(jax.random.PRNGKey(1), (b, 4), jnp.float32, -limit, limit)
-
-    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    # physics-only comparison: tiny cand_k keeps the (unused) reset sampler
-    # cheap in interpret mode
-    step = planning.make_fused_step_autoreset(
-        config, params, interpret=True, inject_noise=True, cand_k=2
-    )
-    u = _uniforms(jax.random.PRNGKey(2), step.noise_planes, b)
-    fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
-
-    # compare only envs the XLA path did NOT terminate (the fused path resets
-    # terminated envs in place)
-    live = ~(np.asarray(xt))
-    np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live])
-    np.testing.assert_array_equal(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live])
-    np.testing.assert_array_equal(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live])
-    if learn_jerk:
-        np.testing.assert_array_equal(np.asarray(fs.act)[live], np.asarray(xs.act)[live])
-        # jerk-mode observation carries [vel, acc] per mover
-        np.testing.assert_array_equal(
-            np.asarray(fo['observation'])[live, 4:], np.asarray(fs.acc)[live].reshape(-1, 4)
-        )
-    np.testing.assert_array_equal(
-        np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision'])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(fi['mover_collision']), np.asarray(xi['mover_collision'])
-    )
-    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
-
-
-@pytest.mark.slow
-def test_fused_multi_per_mover_radii_matches_xla():
-    """Per-mover collision radii: fused cycle physics + collision flags match
-    the XLA path at std=0 (radii differ per mover, so this catches any
-    uniform-radius assumption left in the kernel)."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 2, std_noise=0.0, num_cycles=12, dtype=jnp.float32,
-        collision_params={'shape': 'circle', 'size': np.array([0.11, 0.14])},
-    )
-    b = 128
-    # 1.5 mm gap between the inflated radii (0.11 + 0.14): head-on at
-    # +-6 m/s^2 the movers close ~0.4/1.3 mm in steps 1/2 (12 ms each)
-    state = _planted_multi_state(config, params, b, np.array([[0.5, 0.5], [0.7515, 0.5]]), seed=14)
-    actions = jnp.tile(jnp.asarray([[6.0, 0.0], [-6.0, 0.0]], jnp.float32), (b, 1, 1)).reshape(b, 4)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-
-    collided = False
-    for t in range(3):
-        xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-        u = _uniforms(jax.random.PRNGKey(15 + t), step.noise_planes, b)
-        fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
-        live = ~(np.asarray(xt))
-        np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live])
-        np.testing.assert_array_equal(np.asarray(fi['mover_collision']), np.asarray(xi['mover_collision']))
-        np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
-        np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
-        collided = collided or bool(np.asarray(xi['mover_collision']).any())
-        state = xs
-    assert collided, 'head-on movers never collided at mixed radii'
-
-
-def test_sat_pair_test_matches_exact_segment_predicate():
-    """The kernel's SAT-minus-containment pair test must agree with the
-    exact 16-segment edge-crossing predicate (ops/geometry, the reference's
-    semantics) over dense random pose fuzz INCLUDING near-touching bands —
-    the only allowed disagreement is within the segment test's ~1e-7 epsilon
-    band around exact contact, which the fuzz grid cannot hit."""
-    from gymnasium_planar_robotics_tpu.ops import geometry
-
-    rng = np.random.default_rng(77)
-    n = 60000
-    ha = np.array([0.09, 0.07])
-    hb = np.array([0.06, 0.09])
-    # centers concentrated near touching: gap spans [-0.05, +0.05] around the
-    # critical separation along a random direction, plus random yaw ~ U(-pi, pi)
-    theta = rng.uniform(-np.pi, np.pi, n)
-    gap = rng.uniform(-0.06, 0.06, n)
-    base = np.linalg.norm(ha) + np.linalg.norm(hb)
-    dist = np.clip(base * rng.uniform(0.2, 1.0, n) + gap, 0.0, None)
-    ca = rng.uniform(0.2, 0.5, (n, 2))
-    cb = ca + dist[:, None] * np.stack([np.cos(theta), np.sin(theta)], -1)
-    # PRODUCTION pose distribution: movers never rotate; the pair test sees
-    # identity + quat sensor noise (std 1e-5 rad).  (At artificial U(-pi,pi)
-    # yaws the reference's segment test itself over-reports contact inside
-    # its ~mm-scale epsilon band for near-parallel rotated edges — see the
-    # secondary check below.)
-    yaw_a = rng.normal(0.0, 2e-5, n)
-    yaw_b = rng.normal(0.0, 2e-5, n)
-
-    def R(yaw):
-        return np.cos(yaw), -np.sin(yaw), np.sin(yaw), np.cos(yaw)
-
-    # exact predicate via ops/geometry (quat from yaw)
-    def qpos(c, yaw):
-        return np.concatenate(
-            [c, np.zeros((n, 1)), np.cos(yaw / 2)[:, None], np.zeros((n, 2)), np.sin(yaw / 2)[:, None]], -1
-        )
-
-    exact = np.asarray(
-        geometry.check_rectangles_intersect(
-            jnp.asarray(qpos(ca, yaw_a)), jnp.asarray(qpos(cb, yaw_b)),
-            jnp.asarray(np.tile(ha, (n, 1))), jnp.asarray(np.tile(hb, (n, 1))),
-        )
-    )
-
-    # kernel SAT formulation, evaluated with plain numpy floats
-    Ra = R(yaw_a)
-    Rb = R(yaw_b)
-    tx, ty = cb[:, 0] - ca[:, 0], cb[:, 1] - ca[:, 1]
-    d00 = np.abs(Ra[0] * Rb[0] + Ra[2] * Rb[2])
-    d01 = np.abs(Ra[0] * Rb[1] + Ra[2] * Rb[3])
-    d10 = np.abs(Ra[1] * Rb[0] + Ra[3] * Rb[2])
-    d11 = np.abs(Ra[1] * Rb[1] + Ra[3] * Rb[3])
-    ta1 = np.abs(tx * Ra[0] + ty * Ra[2])
-    ta2 = np.abs(tx * Ra[1] + ty * Ra[3])
-    rb1 = hb[0] * d00 + hb[1] * d01
-    rb2 = hb[0] * d10 + hb[1] * d11
-    tb1 = np.abs(tx * Rb[0] + ty * Rb[2])
-    tb2 = np.abs(tx * Rb[1] + ty * Rb[3])
-    ra1 = ha[0] * d00 + ha[1] * d10
-    ra2 = ha[0] * d01 + ha[1] * d11
-    overlap = (ta1 <= ha[0] + rb1) & (ta2 <= ha[1] + rb2) & (tb1 <= hb[0] + ra1) & (tb2 <= hb[1] + ra2)
-    b_in_a = (ta1 + rb1 < ha[0]) & (ta2 + rb2 < ha[1])
-    a_in_b = (tb1 + ra1 < hb[0]) & (tb2 + ra2 < hb[1])
-    sat = overlap & ~(b_in_a | a_in_b)
-
-    disagree = sat != exact
-    # the ONLY admissible disagreements are inside the segment test's epsilon
-    # band (~1e-7 on orientation products -> a few µm of clearance at these
-    # extents): localize every one there, and there must be almost none
-    clearance = np.maximum.reduce([
-        ta1 - (ha[0] + rb1), ta2 - (ha[1] + rb2), tb1 - (hb[0] + ra1), tb2 - (hb[1] + ra2)
-    ])
-    assert disagree.mean() < 1e-4, f'{disagree.sum()} / {n} disagreements at production poses'
-    assert (np.abs(clearance[disagree]) < 1e-5).all(), (
-        f'a SAT/segment disagreement outside the µm touching band: {clearance[disagree]}'
-    )
-    assert exact.mean() > 0.2 and exact.mean() < 0.9  # fuzz actually straddles contact
-    # containment: one box strictly inside the other -> False on BOTH predicates
-    qp = jnp.asarray([[0.4, 0.4, 0.0, 1.0, 0.0, 0.0, 0.0]])
-    assert not bool(
-        np.asarray(
-            geometry.check_rectangles_intersect(qp, qp, jnp.asarray([[0.01, 0.01]]), jnp.asarray([[0.09, 0.09]]))
-        )[0]
-    )
-
-
-@pytest.mark.parametrize('learn_jerk', [False, True])
-def test_fused_multi_box_matches_xla_zero_noise(learn_jerk):
-    """BOX collision shape in the M-mover kernel (round-2 VERDICT item #5):
-    cycle physics, wall flags and PAIR flags (16-segment rotated-rectangle
-    test) must match the XLA path bit-exactly at std=0."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 2, std_noise=0.0, num_cycles=12, learn_jerk=learn_jerk,
-        dtype=jnp.float32,
-        collision_params={'shape': 'box', 'size': np.array([0.09, 0.09])},
-    )
-    b = 128
-    state, obs, _ = planning.init_batch(config, params, jax.random.PRNGKey(21), b)
-    limit = 100.0 if learn_jerk else 8.0
-    actions = jax.random.uniform(jax.random.PRNGKey(22), (b, 4), jnp.float32, -limit, limit)
-
-    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    step = planning.make_fused_step_autoreset(
-        config, params, interpret=True, inject_noise=True, cand_k=2
-    )
-    u = _uniforms(jax.random.PRNGKey(23), step.noise_planes, b)
-    fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
-
-    live = ~(np.asarray(xt))
-    np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live])
-    np.testing.assert_array_equal(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live])
-    np.testing.assert_array_equal(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live])
-    np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
-    np.testing.assert_array_equal(np.asarray(fi['mover_collision']), np.asarray(xi['mover_collision']))
-    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
-
-
-@pytest.mark.slow
-def test_fused_multi_box_pair_collision_fires_like_xla():
-    """Head-on box movers: the in-kernel rotated-rectangle pair test latches
-    the collision at the same step as the XLA path and the kernel resets the
-    episode in place."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 2, std_noise=0.0, num_cycles=12, dtype=jnp.float32,
-        collision_params={'shape': 'box', 'size': np.array([0.09, 0.09])},
-    )
-    b = 128
-    # 2 mm gap between the 0.09-half boxes: head-on at +-6 m/s^2 they touch
-    # within a couple of 12 ms steps
-    state = _planted_multi_state(config, params, b, np.array([[0.5, 0.5], [0.682, 0.5]]), seed=24)
-    actions = jnp.tile(jnp.asarray([[6.0, 0.0], [-6.0, 0.0]], jnp.float32), (b, 1, 1)).reshape(b, 4)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-
-    collided = False
-    for t in range(3):
-        xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-        u = _uniforms(jax.random.PRNGKey(25 + t), step.noise_planes, b)
-        fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
-        live = ~(np.asarray(xt))
-        np.testing.assert_array_equal(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live])
-        np.testing.assert_array_equal(np.asarray(fi['mover_collision']), np.asarray(xi['mover_collision']))
-        np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
-        collided = collided or bool(np.asarray(xi['mover_collision']).any())
-        state = xs
-    assert collided, 'head-on box movers never collided'
-
-
-# ---------------------------------------------------------------------------
-# bumpered mesh movers (accel_scale != 1) in-kernel
-# ---------------------------------------------------------------------------
-
-
-def _scaled_params(params, scales):
-    import dataclasses
-
-    return dataclasses.replace(
-        params, accel_scale=jnp.asarray(np.asarray(scales, np.float64), jnp.float32)
-    )
-
-
-@pytest.mark.parametrize('learn_jerk', [False, True])
-def test_fused_accel_scale_matches_xla(learn_jerk):
-    """Bumpered mesh movers (qacc = accel_scale * command/act): the fused
-    step bit-matches the XLA path at std=0 — the config round 1 excluded
-    from the kernels entirely (reference bumper mass, basic_envs.py:911-925)."""
-    config, params = _mk(std=0.0, learn_jerk=learn_jerk, num_cycles=12)
-    params = _scaled_params(params, [0.8125])  # exact in f32
-    assert pallas_step.supports(config, params)
-    b = 128
-    state = _random_states(config, params, b, seed=51)
-    limit = 80.0 if learn_jerk else 8.0
-    actions = jax.random.uniform(jax.random.PRNGKey(52), (b, 2), jnp.float32, -limit, limit)
-
-    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    fused_step = planning.make_fused_step(config, params, interpret=True)
-    fs, _, fr, ft, _, fi = fused_step(state, actions)
-
-    # ulp-level tolerance: the extra accel_scale multiply lets XLA contract
-    # FMAs differently in the two programs (same note as the pushing kernel)
-    tol = dict(rtol=2e-6, atol=2e-7)
-    np.testing.assert_allclose(np.asarray(fs.pos), np.asarray(xs.pos), **tol)
-    np.testing.assert_allclose(np.asarray(fs.vel), np.asarray(xs.vel), **tol)
-    np.testing.assert_allclose(np.asarray(fs.acc), np.asarray(xs.acc), **tol)
-    if learn_jerk:
-        np.testing.assert_allclose(np.asarray(fs.act), np.asarray(xs.act), **tol)
-        # the body accelerates slower than the integrator state
-        moving = np.abs(np.asarray(xs.act)) > 1e-6
-        assert (np.abs(np.asarray(xs.acc)[moving]) < np.abs(np.asarray(xs.act)[moving])).all()
-    np.testing.assert_array_equal(np.asarray(fi['wall_collision']), np.asarray(xi['wall_collision']))
-
-
-def test_fused_autoreset_accel_scale_matches_xla():
-    """Single-mover in-kernel autoreset with accel_scale != 1: live-lane
-    physics and rewards bit-match the XLA step."""
-    config, params = _mk(std=0.0, num_cycles=12)
-    params = _scaled_params(params, [0.75])
-    b = 128
-    state = _random_states(config, params, b, seed=53)
-    actions = jax.random.uniform(jax.random.PRNGKey(54), (b, 2), jnp.float32, -8.0, 8.0)
-
-    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    u = _uniforms(jax.random.PRNGKey(55), step.noise_planes, b)
-    fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
-
-    live = ~np.asarray(xt)
-    tol = dict(rtol=2e-6, atol=2e-7)
-    np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
-    np.testing.assert_allclose(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live], **tol)
-    np.testing.assert_allclose(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live], **tol)
-    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
-
-
-def test_fused_multi_accel_scale_matches_xla():
-    """M=2 with DIFFERENT per-mover accel scales (mesh mover + bumper next
-    to a plain mover): fused cycle physics matches the XLA path at std=0."""
-    config, params = planning.make_planning_env(
-        np.ones((4, 4)), 2, std_noise=0.0, num_cycles=12, dtype=jnp.float32
-    )
-    params = _scaled_params(params, [1.0, 0.8125])
-    b = 128
-    state, obs, _ = planning.init_batch(config, params, jax.random.PRNGKey(56), b)
-    actions = jax.random.uniform(jax.random.PRNGKey(57), (b, 4), jnp.float32, -8.0, 8.0)
-
-    xs, _, xr, xt, _, xi = planning.batched_step(config, params, state, actions)
-    step = planning.make_fused_step_autoreset(config, params, interpret=True, inject_noise=True, cand_k=2)
-    u = _uniforms(jax.random.PRNGKey(58), step.noise_planes, b)
-    fs, fo, fr, ft, ftr, fi = step(state, actions, noise=u)
-
-    live = ~np.asarray(xt)
-    tol = dict(rtol=2e-6, atol=2e-7)
-    np.testing.assert_allclose(np.asarray(fs.pos)[live], np.asarray(xs.pos)[live], **tol)
-    np.testing.assert_allclose(np.asarray(fs.vel)[live], np.asarray(xs.vel)[live], **tol)
-    np.testing.assert_allclose(np.asarray(fs.acc)[live], np.asarray(xs.acc)[live], **tol)
-    np.testing.assert_array_equal(np.asarray(fr), np.asarray(xr))
-    # mover 1 (scaled) really accelerates slower than commanded
-    assert (np.abs(np.asarray(fs.acc)[live][:, 1]) <= np.abs(np.asarray(fs.acc)[live][:, 0]).max() + 1e-6).all()

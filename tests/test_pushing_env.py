@@ -400,12 +400,16 @@ def test_dense_reward_mode_shaping():
     np.testing.assert_array_equal(np.asarray(ns.pos), np.asarray(ns_s.pos))
     np.testing.assert_array_equal(np.asarray(ns.obj_pos), np.asarray(ns_s.obj_pos))
     assert float(rew_s) == -1.0 and bool(term) == bool(term_s)
-    # fused paths refuse the dense mode (they compute the sparse reward in-plane)
-    import pytest as _pytest
-
-    cfg32, par32 = pushing.make_pushing_env(std_noise=0.0, dtype=jnp.float32, reward_mode='dense')
-    with _pytest.raises(AssertionError):
-        pushing.make_fused_step_autoreset(cfg32, par32, interpret=True)
+    # the fused kernel computes the same dense shaping in-kernel (std=0, f32)
+    cfg32, par32 = pushing.make_pushing_env(std_noise=0.0, num_cycles=8, dtype=jnp.float32, reward_mode='dense')
+    b = 8
+    s32, _, _ = pushing.init_batch(cfg32, par32, jax.random.PRNGKey(4), b)
+    a32 = jnp.tile(jnp.asarray([[1.0, 0.5]], jnp.float32), (b, 1))
+    _, _, xr, xt, _, _ = pushing.batched_step_autoreset(cfg32, par32, s32, a32)
+    _, _, fr, ft, _, _ = pushing.make_fused_step_autoreset(cfg32, par32, interpret=True, cand_k=2)(s32, a32)
+    np.testing.assert_allclose(np.asarray(fr), np.asarray(xr), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(ft), np.asarray(xt))
+    assert (np.abs(np.asarray(xr)) < 50).all() and np.unique(np.asarray(xr)).size == b  # shaped, not sparse
 
 
 def test_reset_respects_overrides_and_min_distance():

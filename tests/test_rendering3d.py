@@ -1,4 +1,4 @@
-"""3D MuJoCo viewer bridge: stream TPU engine state, render rgb/depth.
+"""3D MuJoCo viewer bridge: stream the JAX engine state, render rgb/depth.
 
 Parity target: the reference's offscreen rendering with geom-group
 filtering (`/root/reference/gymnasium_planar_robotics/utils/rendering.py:69-96`)

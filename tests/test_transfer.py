@@ -3,7 +3,7 @@ BOTH engines must score the same — the claim a user switching engines needs.
 
 `tools/transfer_eval.py` is the full protocol (train PPO/HER in this engine,
 200 reference episodes/family, TRANSFER.md artifact); these tests run reduced
-budgets so CI exercises the whole path: train in the TPU engine, freeze,
+budgets so CI exercises the whole path: train in the JAX engine, freeze,
 evaluate in the reference MuJoCo env against the reference's own scoring
 (`benchmark_planning_env.py:502-534`, `benchmark_pushing_env.py:499-527`).
 """

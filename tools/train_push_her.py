@@ -5,10 +5,11 @@ recipe — an off-policy learner + HER relabeling on the SPARSE pushing reward
 strong policy in this engine.  The round-4 transfer artifact trained plain
 DDPG+HER to 13%; this lab adds the TD3 stabilizers (clipped double-Q,
 target policy smoothing, delayed policy) from `models/her.py` and trains on
-the fused Pallas step.
+the batched step that `ops.pallas_step.batched_autoreset_step` chooses (the
+fused kernel on a GPU).
 
 Usage:
-    PYTHONPATH=/root/repo python tools/train_push_her.py \
+    python tools/train_push_her.py \
         --iters 4000 --batch 512 --twin --target-noise 0.1 --policy-delay 2
 
 Prints eval rows (strict reference scoring: `is_success` on the episode's
@@ -31,6 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from gymnasium_planar_robotics_tpu.models import her, pushing  # noqa: E402
+from gymnasium_planar_robotics_tpu.ops.pallas_step import batched_autoreset_step  # noqa: E402
 from transfer_eval import HORIZON, PUSHING_KW, _pushing_vec, eval_in_engine  # noqa: E402
 
 
@@ -49,10 +51,10 @@ def build(args):
         explore_per_episode=args.per_episode,
     )
     pol = her.init_params(jax.random.PRNGKey(args.seed), cfg)
-    batched = pushing.make_fused_step_autoreset(config, params) if args.fused else None
+    batched = batched_autoreset_step(pushing, config, params)
     train_step, (a_opt, c_opt) = her.make_train_step(
         config, params, cfg,
-        None if batched is not None else pushing.step_autoreset,
+        None,
         lambda ach, des, mc, wc: pushing.compute_reward(params, ach, des, wc),
         lambda r: r == -50.0,
         vec_fn=_pushing_vec,
@@ -95,8 +97,6 @@ def main() -> None:
     p.add_argument('--n-step', type=int, default=1)
     p.add_argument('--per-episode', action='store_true',
                    help='temporally correlated exploration (episode-held coin + direction)')
-    p.add_argument('--fused', action='store_true', default=True)
-    p.add_argument('--no-fused', dest='fused', action='store_false')
     p.add_argument('--eval-every', type=int, default=1000)
     p.add_argument('--eval-episodes', type=int, default=512)
     p.add_argument('--seed', type=int, default=0)
